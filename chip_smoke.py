@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--frames 300] [--out DIR]
+
+Run from the root of a checkout.  Phases (any failure exits non-zero and
+prints no result line):
+
+0. device — requires ``torch.cuda.is_available()``; prints the card's
+   name and power limit (``nvidia-smi``) and the torch / CUDA versions.
+1. build — compiles every CUDA kernel of the main path from
+   ``irotavg_tpu_torch/csrc`` with nvcc and prints the build seconds.
+2. kernels — each kernel against its plain PyTorch version on the card at
+   the main path's shapes, required exactly equal; median times of both
+   over 20 runs (CUDA events).
+3. main path — renders a synthetic KITTI-sized sequence (1241x376, KITTI
+   00 intrinsics) with numpy, writes it as PGM with a GT file and an
+   ORB-SLAM YAML (2000 features), runs the port's ``irotavg`` CLI on it
+   with launch counters reset just before, and checks the kernel counts,
+   the output files and the rotation RMSE against GT.
+
+The second-to-last stdout line is the kernel report
+``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# main-path shapes of the matcher: 2000 ORB features, K = 3 window
+# candidates (vg_win_size - 1), plus a ragged case
+MATCH_SHAPES = ((1, 2000, 2000), (3, 2000, 2000), (1, 1999, 2001))
+# frame size and intrinsics of KITTI odometry sequence 00
+# (ORB-SLAM2 Examples/Monocular/KITTI00-02.yaml)
+KITTI_W, KITTI_H = 1241, 376
+KITTI_K = (718.856, 718.856, 607.1928, 185.2157)
+# rotation RMSE bound (deg) for the synthetic sequence, GT-anchored every
+# 20 frames like the reference CLI; the JAX reference reaches 0.61 deg on
+# the 300-frame sequence (run on a CPU)
+RMSE_BOUND_DEG = 1.0
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def _card(torch) -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if r.returncode != 0:
+        raise SmokeError(f"nvidia-smi failed: {r.stderr.strip()}")
+    idx = torch.cuda.current_device()
+    lines = [ln.strip() for ln in r.stdout.strip().splitlines()]
+    return lines[idx] if idx < len(lines) else lines[0]
+
+
+def _median_ms(torch, fn, reps=20):
+    fn()                                   # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeError("torch.cuda.is_available() is False: this smoke "
+                         "run needs a CUDA card")
+    card = _card(torch)
+    print(card)                  # name, power limit exactly as nvidia-smi
+    print(f"[device] {torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__}; CUDA {torch.version.cuda}; python "
+          f"{sys.version.split()[0]}")
+    return card
+
+
+def phase_build(card):
+    from irotavg_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.load("match_best2")
+    print(f"[build] match_best2: nvcc {build.build_seconds['match_best2']:.2f}"
+          f" s, load {time.perf_counter() - t0:.2f} s  ({card})")
+
+
+def _match_inputs(torch, B, n1, n2, gate, gen, dev):
+    """Random words with planted near-duplicates and gate features at the
+    KITTI frame size."""
+    from irotavg_tpu_torch.ops.match import make_colf, make_rowf
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, generator=gen,
+                             dtype=torch.int64, device=dev).to(torch.int32)
+
+    def unif(n, hi):
+        return torch.rand(n, generator=gen, device=dev) * hi
+
+    d1 = words(B, n1, 8)
+    d2 = words(B, n2, 8)
+    k = min(n1, n2) // 4
+    flip = words(B, k, 8) & words(B, k, 8) & words(B, k, 8) & \
+        words(B, k, 8) & words(B, k, 8)
+    d2[:, :k] = d1[:, :k] ^ flip              # ~8 differing bits each
+    d2[:, k:2 * k] = d1[:, :k]                # exact duplicates -> ties
+    rows, cols = [], []
+    F = torch.tensor([[0, 1e-4, -0.02], [-1e-4, 0, 0.03], [0.02, -0.03, 1]],
+                     device=dev)
+    for _ in range(B):
+        v1 = torch.rand(n1, generator=gen, device=dev) > 0.1
+        v2 = torch.rand(n2, generator=gen, device=dev) > 0.1
+        nd1 = torch.randint(0, 12, (n1,), generator=gen, device=dev)
+        nd2 = torch.randint(0, 12, (n2,), generator=gen, device=dev)
+        x1, y1 = unif(n1, KITTI_W), unif(n1, KITTI_H)
+        x2, y2 = unif(n2, KITTI_W), unif(n2, KITTI_H)
+        o1 = torch.randint(0, 8, (n1,), generator=gen, device=dev)
+        o2 = torch.randint(0, 8, (n2,), generator=gen, device=dev)
+        if gate in ("none", "node"):
+            rows.append(make_rowf(v1, node=nd1))
+            cols.append(make_colf(v2, node=nd2))
+        elif gate == "local":
+            rows.append(make_rowf(v1, x=x1, y=y1, octave=o1,
+                                  th=torch.full((n1,), 60.0, device=dev)))
+            cols.append(make_colf(v2, x=x2, y=y2, octave=o2))
+        else:
+            a = x2 * F[0, 0] + y2 * F[1, 0] + F[2, 0]
+            b = x2 * F[0, 1] + y2 * F[1, 1] + F[2, 1]
+            c = x2 * F[0, 2] + y2 * F[1, 2] + F[2, 2]
+            th = 3.84 * (1.2 ** o1.float()) ** 2 * 40
+            rows.append(make_rowf(v1, node=nd1, x=x1, y=y1, th=th))
+            cols.append(make_colf(v2, node=nd2, a=a, b=b, c=c))
+    return d1, d2, torch.stack(rows), torch.stack(cols)
+
+
+def phase_kernels(card):
+    """Kernel against plain version at the main-path shapes, all gates."""
+    import torch
+
+    from irotavg_tpu_torch.device import make_generator
+    from irotavg_tpu_torch.ops import match
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = make_generator(7, dev)
+    max_err = 0.0
+    main_ms = None
+    for B, n1, n2 in MATCH_SHAPES:
+        for gate in match.GATES:
+            args = _match_inputs(torch, B, n1, n2, gate, gen, dev)
+            got = match.best2(*args, gate)
+            ref = match.best2_plain(*args, gate)
+            torch.cuda.synchronize()
+            errs = [float((g.double() - r.double()).abs().max())
+                    for g, r in zip(got, ref)]
+            n_match = int((ref[0] < match.BIG).sum())
+            if any(e != 0.0 for e in errs):
+                raise SmokeError(f"match_best2 != plain at B={B} {n1}x{n2} "
+                                 f"gate={gate}: max |d1,d2,idx| {errs}")
+            max_err = max(max_err, *errs)
+            k_ms = _median_ms(torch, lambda: match.best2(*args, gate))
+            p_ms = _median_ms(torch, lambda: match.best2_plain(*args, gate))
+            print(f"[kernel] match_best2 B={B} {n1}x{n2} {gate:>15}: equal "
+                  f"(rows matched {n_match}); kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms  ({card})")
+            if (B, n1, n2, gate) == (3, 2000, 2000, "epipolar_nonode"):
+                main_ms = (k_ms, p_ms)
+    return {"name": "match_best2", "route": "cuda",
+            "source": "irotavg_tpu_torch/csrc/match_best2.cu",
+            "replaces": "irotavg_tpu/ops/match_pallas.py:80",
+            "max_abs_err": max_err, "ms": main_ms[0], "plain_ms": main_ms[1]}
+
+
+# -- phase 3: the synthetic KITTI-sized sequence and the CLI ------------------
+
+
+def _blur(img, sigma):
+    """Separable Gaussian blur (numpy, edge-replicated)."""
+    r = int(3 * sigma + 0.5)
+    x = np.arange(-r, r + 1)
+    k = np.exp(-x * x / (2 * sigma * sigma))
+    k /= k.sum()
+    p = np.pad(img.astype(np.float64), r, mode="edge")
+    p = sum(k[i] * p[:, i:i + img.shape[1]] for i in range(2 * r + 1))
+    return sum(k[i] * p[i:i + img.shape[0]] for i in range(2 * r + 1))
+
+
+def _texture(rng, size=512):
+    """Blurred noise with rectangles and discs (the texture recipe of
+    tests/seqgen.py, drawn with numpy)."""
+    tex = _blur(rng.integers(60, 200, (size, size)), 1.2)
+    yy, xx = np.mgrid[:size, :size]
+    for _ in range(150):
+        x0, y0 = rng.integers(10, size - 30, 2)
+        w, h = rng.integers(6, 40, 2)
+        tex[y0:y0 + h + 1, x0:x0 + w + 1] = rng.integers(0, 255)
+    for _ in range(100):
+        cx, cy = rng.integers(15, size - 15, 2)
+        r = rng.integers(3, 14)
+        tex[(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = rng.integers(0, 255)
+    return np.clip(tex, 0, 255).astype(np.float32)
+
+
+def _ring_world(rng):
+    """Concentric rings of textured panels facing the centre: a far wall
+    and two sparser foreground rings (several depth layers per view)."""
+    planes = []
+    for radius, n_panels, fill, height, y0s in (
+            (16.0, 14, 1.04, 8.0, (0.0,)),
+            (11.0, 9, 0.42, 3.4, (-1.6, 1.8)),
+            (7.5, 7, 0.30, 2.2, (1.2, -1.0, 0.2))):
+        span = 2 * np.pi * radius / n_panels * fill
+        for p in range(n_panels):
+            phi = 2 * np.pi * (p + (radius * 7 % 1.0)) / n_panels
+            c = np.array([radius * np.sin(phi), y0s[p % len(y0s)],
+                          radius * np.cos(phi)])
+            tvec = np.array([np.cos(phi), 0.0, -np.sin(phi)]) * span / 2
+            up = np.array([0.0, height / 2, 0.0])
+            corners = np.stack([c - tvec - up, c + tvec - up,
+                                c + tvec + up, c - tvec + up])
+            planes.append((corners, _texture(rng)))
+    return planes
+
+
+def _homography(src, dst):
+    """3x3 H with dst ~ H src from four point pairs (DLT)."""
+    A = []
+    for (x, y), (u, v) in zip(src, dst):
+        A.append([x, y, 1, 0, 0, 0, -u * x, -u * y, -u])
+        A.append([0, 0, 0, x, y, 1, -v * x, -v * y, -v])
+    return np.linalg.svd(np.asarray(A))[2][-1].reshape(3, 3)
+
+
+def _render(planes, R, t, K, w, h):
+    """Textured quads drawn far to near with bilinear texture sampling."""
+    canvas = np.full((h, w), 90.0, np.float32)
+    cams = [(corners @ R.T + t, tex) for corners, tex in planes]
+    cams = [(c, tex) for c, tex in cams if (c[:, 2] > 0.5).all()]
+    cams.sort(key=lambda ct: -ct[0][:, 2].mean())
+    for cam, tex in cams:
+        proj = cam @ K.T
+        proj = proj[:, :2] / proj[:, 2:3]
+        if (np.abs(proj) > 8 * max(w, h)).any():
+            continue
+        th, tw = tex.shape
+        src = np.array([[0, 0], [tw, 0], [tw, th], [0, th]], np.float64)
+        Hinv = np.linalg.inv(_homography(src, proj))
+        x0, y0 = np.floor(proj.min(0)).astype(int)
+        x1, y1 = np.ceil(proj.max(0)).astype(int)
+        x0, y0, x1, y1 = max(x0, 0), max(y0, 0), min(x1, w), min(y1, h)
+        if x0 >= x1 or y0 >= y1:
+            continue
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        q = np.stack([xx, yy, np.ones_like(xx)], -1).astype(np.float64) \
+            @ Hinv.T
+        u = q[..., 0] / q[..., 2]
+        v = q[..., 1] / q[..., 2]
+        inside = (u >= 0) & (u <= tw - 1) & (v >= 0) & (v <= th - 1)
+        ui = np.clip(np.floor(u).astype(int), 0, tw - 2)
+        vi = np.clip(np.floor(v).astype(int), 0, th - 2)
+        fu = np.clip(u - ui, 0, 1)
+        fv = np.clip(v - vi, 0, 1)
+        val = ((1 - fv) * ((1 - fu) * tex[vi, ui] + fu * tex[vi, ui + 1])
+               + fv * ((1 - fu) * tex[vi + 1, ui] + fu * tex[vi + 1, ui + 1]))
+        region = canvas[y0:y1, x0:x1]
+        region[inside] = val[inside]
+    return np.clip(np.rint(canvas), 0, 255).astype(np.uint8)
+
+
+def render_sequence(n_frames, seed=0, laps=1.0, cam_radius=4.0):
+    """A one-way orbit inside the panel ring at the KITTI 00 frame size and
+    intrinsics.  Returns (frames [uint8 (376, 1241)], K, R_gt world->cam)."""
+    from scipy.spatial.transform import Rotation as Rsc
+
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy = KITTI_K
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    planes = _ring_world(rng)
+    frames, R_gt = [], []
+    for k in range(n_frames):
+        phi = 2 * np.pi * laps * k / n_frames
+        C = np.array([cam_radius * np.sin(phi), 0.0,
+                      cam_radius * np.cos(phi)])
+        R = Rsc.from_euler("y", -phi).as_matrix()
+        frames.append(_render(planes, R, -R @ C, K, KITTI_W, KITTI_H))
+        R_gt.append(R)
+    return frames, K, np.stack(R_gt)
+
+
+KITTI_YAML = """%YAML:1.0
+# KITTI odometry 00-02 (ORB-SLAM2 Examples/Monocular/KITTI00-02.yaml)
+Camera.fx: {fx}
+Camera.fy: {fy}
+Camera.cx: {cx}
+Camera.cy: {cy}
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+ORBextractor.nFeatures: 2000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+def write_sequence(out, n_frames, seed=0):
+    """Render and write the PGM frames, the 9-column GT and the YAML."""
+    from irotavg_tpu_torch.utils.sequence import write_pgm
+
+    frames, K, R_gt = render_sequence(n_frames, seed=seed)
+    seq = os.path.join(out, "seq")
+    os.makedirs(seq, exist_ok=True)
+    for i, im in enumerate(frames):
+        write_pgm(os.path.join(seq, f"{i:06d}.pgm"), im)
+    gt = os.path.join(out, "gt.txt")
+    np.savetxt(gt, R_gt.reshape(-1, 9))
+    yaml = os.path.join(out, "kitti00.yaml")
+    fx, fy, cx, cy = KITTI_K
+    with open(yaml, "w") as fh:
+        fh.write(KITTI_YAML.format(fx=fx, fy=fy, cx=cx, cy=cy))
+    return seq, gt, yaml, R_gt
+
+
+def rotation_rmse_deg(poses_path, ids_path, R_gt):
+    """RMSE (deg) of the saved rotations against GT after aligning both
+    to the first keyframe; keyframes map to source frames through the
+    1-based ids file."""
+    from scipy.spatial.transform import Rotation as Rsc
+
+    rows = np.loadtxt(poses_path, ndmin=2)
+    ids = np.loadtxt(ids_path, dtype=int, ndmin=1) - 1
+    if rows.shape != (len(ids), 8) or not np.all(np.isfinite(rows)):
+        raise SmokeError(f"poses file has shape {rows.shape} (expected "
+                         f"({len(ids)}, 8)) or non-finite values")
+    if not np.allclose(np.linalg.norm(rows[:, 1:5], axis=1), 1.0, atol=1e-6):
+        raise SmokeError("saved rotations are not unit quaternions")
+    est = Rsc.from_quat(rows[:, [2, 3, 4, 1]])       # [qx qy qz qw]
+    gt = Rsc.from_matrix(R_gt[ids])
+    est = est * est[0].inv()
+    gt = gt * gt[0].inv()
+    err = np.degrees(np.linalg.norm((est * gt.inv()).as_rotvec(), axis=1))
+    return float(np.sqrt(np.mean(err ** 2))), len(ids)
+
+
+def phase_main_path(card, n_frames, out):
+    import contextlib
+
+    from irotavg_tpu_torch.app import irotavg
+    from irotavg_tpu_torch.ops import match
+
+    t0 = time.perf_counter()
+    seq, gt, yaml, R_gt = write_sequence(out, n_frames)
+    print(f"[main] rendered {n_frames} frames {KITTI_W}x{KITTI_H} in "
+          f"{time.perf_counter() - t0:.1f} s (host numpy)")
+    res = os.path.join(out, "out")
+    log_path = os.path.join(out, "irotavg.log")
+    try:
+        with open(log_path, "w", buffering=1) as fh:      # line-buffered
+            match.best2.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(fh):
+                rc = irotavg.main(["none", yaml, seq, "--image_ext", ".pgm",
+                                   "--gt", gt, "--out_dir", res])
+            wall = time.perf_counter() - t0
+            launches = match.best2.launches
+    finally:
+        shutil.rmtree(seq)         # the frames are regenerated from the seed
+    with open(log_path) as fh:
+        log = fh.read()
+    if rc != 0:
+        raise SmokeError(f"irotavg CLI returned {rc}; log tail:\n"
+                         + log[-2000:])
+    if launches <= 0:
+        raise SmokeError("the main path never launched match_best2")
+    rmse, n_key = rotation_rmse_deg(os.path.join(res, "rotavg_poses.txt"),
+                                    os.path.join(res, "rotavg_poses_ids.txt"),
+                                    R_gt)
+    print(f"[main] frames {n_frames}, keyframes {n_key}, match_best2 "
+          f"launches {launches}  ({card})")
+    print(f"[main] rotation RMSE {rmse:.4f} deg (bound {RMSE_BOUND_DEG})  "
+          f"({card})")
+    for line in log.splitlines():
+        if " frames (mean " in line:
+            print(f"[main] {line}  ({card})")
+    print(f"[main] {n_frames / wall:.3f} frames/s end to end ({wall:.1f} s, "
+          f"first frame includes CUDA start-up)  ({card})")
+    if not np.isfinite(rmse) or rmse >= RMSE_BOUND_DEG:
+        raise SmokeError(f"rotation RMSE {rmse} deg is not under "
+                         f"{RMSE_BOUND_DEG}")
+    return {"match_best2": launches}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frames", type=int, default=300,
+                    help="frames in the one-lap synthetic sequence "
+                         "(default 300)")
+    ap.add_argument("--out", default=os.path.join(HERE, "smoke_out"),
+                    help="scratch directory for the sequence and outputs")
+    args = ap.parse_args(argv)
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: FAIL: torch is not importable: {e}",
+              file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(HERE, "irotavg_tpu_torch")):
+        print("chip_smoke: FAIL: irotavg_tpu_torch/ not found beside this "
+              "script; run it from the root of a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    try:
+        card = phase_device()
+        phase_build(card)
+        kern = phase_kernels(card)
+        launches = phase_main_path(card, args.frames, args.out)
+    except SmokeError as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    kern["launches"] = launches["match_best2"]
+    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,197 @@
+"""The incremental rotation-averaging SLAM CLI on PyTorch (port of
+``irotavg_tpu/app/irotavg.py``, the reference ``irotavg`` binary,
+src/IRotAvg.cpp:132-398).
+
+    python -m irotavg_tpu_torch.app.irotavg none CONFIG SEQUENCE_PATH
+        [--image_ext .png] [--timestamp_offset 0] [--gt FILE]
+        [--max_frames N] [--out_dir DIR] [--no_loop_closure]
+        [--prefetch 0|1]
+
+Per frame: Frame creation (extract + undistort) -> ViewGraph.process_frame
+(skip if not a keyframe) -> optional GT ``fix_pose`` every 20 ids ->
+rot_avg(10), or a whole-graph solve after a GT correction -> per-frame
+timing line.  Outputs ``rotavg_poses.txt`` and ``rotavg_poses_ids.txt``
+as the reference writes them.
+
+Limits of this port (see ROADMAP.md): ``VOCAB`` must be ``none`` (place
+recognition and loop closure are not ported yet); ``--checkpoint``,
+``--resume``, ``--plot_matches`` and ``--trace_dir`` are not ported;
+frames are extracted one at a time (``--prefetch`` accepts 0 or 1 — the
+reference's batched look-ahead leaves every engine decision unchanged).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+NOT_PORTED = ("--checkpoint", "--resume", "--plot_matches", "--trace_dir")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="irotavg",
+        description="Incremental rotation averaging over an image sequence",
+    )
+    p.add_argument("orb_vocabulary",
+                   help="ORB vocabulary; only 'none' is supported here")
+    p.add_argument("config", help="ORB-SLAM-compatible YAML settings")
+    p.add_argument("sequence_path", help="path to images")
+    p.add_argument("--image_ext", default=".png")
+    p.add_argument("--timestamp_offset", type=int, default=0)
+    p.add_argument("--gt", default=None,
+                   help="ground-truth orientations (9 numbers per line)")
+    p.add_argument("--max_frames", type=int, default=None)
+    p.add_argument("--out_dir", default=".")
+    p.add_argument("--no_loop_closure", action="store_true")
+    p.add_argument("--prefetch", type=int, default=1, choices=(0, 1),
+                   help="0/1: per-frame extraction (the only mode ported)")
+    p.add_argument("--trace_dir", default=None, help="not ported yet")
+    p.add_argument("--checkpoint", action="store_true", help="not ported yet")
+    p.add_argument("--resume", default=None, help="not ported yet")
+    p.add_argument("--plot_matches", default=None, help="not ported yet")
+    return p
+
+
+def _not_ported(args) -> str | None:
+    if args.orb_vocabulary.lower() not in ("none", "-", ""):
+        return ("VOCAB must be 'none': place recognition and loop closure "
+                "are not yet ported to irotavg_tpu_torch")
+    for flag in NOT_PORTED:
+        if getattr(args, flag[2:]) not in (None, False):
+            return f"{flag} is not yet ported to irotavg_tpu_torch"
+    return None
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    msg = _not_ported(args)
+    if msg is not None:
+        print(msg, file=sys.stderr)
+        return 2
+
+    import numpy as np
+    import torch
+
+    from irotavg_tpu_torch import so3
+    from irotavg_tpu_torch.config import PipelineConfig, load_settings
+    from irotavg_tpu_torch.device import pick_device
+    from irotavg_tpu_torch.engine.viewgraph import (
+        FrameConnectionError, ViewGraph,
+    )
+    from irotavg_tpu_torch.frontend.camera import Camera
+    from irotavg_tpu_torch.frontend.frame import Frame
+    from irotavg_tpu_torch.frontend.orb import ORBExtractor
+    from irotavg_tpu_torch.utils.sequence import SequenceLoader, load_gray
+    from irotavg_tpu_torch.utils.timing import StageTimer
+
+    cfg = PipelineConfig()
+    cam_cfg, orb_cfg = load_settings(args.config)
+    device = pick_device()
+
+    gt_rots = None
+    if args.gt is not None:
+        data = np.loadtxt(args.gt)
+        if data.ndim == 1:
+            data = data[None]
+        if data.shape[1] != 9:
+            print(f"bad GT file: expected 9 columns, got {data.shape[1]}",
+                  file=sys.stderr)
+            return 1
+        gt_rots = data.reshape(-1, 3, 3)
+
+    extractor = ORBExtractor(
+        n_features=orb_cfg.n_features, scale_factor=orb_cfg.scale_factor,
+        n_levels=orb_cfg.n_levels, ini_th_fast=orb_cfg.ini_th_fast,
+        min_th_fast=orb_cfg.min_th_fast, device=device)
+    loader = SequenceLoader(args.sequence_path, args.image_ext,
+                            args.timestamp_offset)
+    if len(loader) == 0:
+        print(f"no {args.image_ext} images in {args.sequence_path}",
+              file=sys.stderr)
+        return 1
+
+    print(f"K:\n[{cam_cfg.fx} 0 {cam_cfg.cx}; 0 {cam_cfg.fy} {cam_cfg.cy}; "
+          f"0 0 1]")
+    print(f"dist coefs: [{cam_cfg.k1} {cam_cfg.k2} {cam_cfg.p1} "
+          f"{cam_cfg.p2}]")
+    print(f"device: {device}")
+
+    timer = StageTimer()
+    os.makedirs(args.out_dir, exist_ok=True)
+    poses_path = os.path.join(args.out_dir, "rotavg_poses.txt")
+    ids_path = os.path.join(args.out_dir, "rotavg_poses_ids.txt")
+    selected_frames: list[int] = []
+    todo = [(count + 1, impath) for count, (_ts, impath) in enumerate(loader)
+            if count % cfg.sampling_step == 0]
+
+    im0 = load_gray(todo[0][1])
+    camera = Camera(
+        fx=cam_cfg.fx, fy=cam_cfg.fy, cx=cam_cfg.cx, cy=cam_cfg.cy,
+        k1=cam_cfg.k1, k2=cam_cfg.k2, p1=cam_cfg.p1, p2=cam_cfg.p2,
+        width=im0.shape[1], height=im0.shape[0])
+    vg = ViewGraph(camera, min_matches=cfg.vg_min_matches, device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    frame_id = 0
+    for count1, impath in todo:
+        if args.max_frames is not None and frame_id >= args.max_frames:
+            break
+        with timer.stage("frame_creation"):
+            frame = Frame(frame_id, load_gray(impath), extractor, camera)
+            sync()
+        with timer.stage("frame_processing"):
+            try:
+                selected = vg.process_frame(frame, win_size=cfg.vg_win_size)
+            except FrameConnectionError as e:
+                # the reference std::exits here (src/ViewGraph.cpp:1083)
+                print(f"Not enough matches: {e}", file=sys.stderr)
+                return -1
+            sync()
+            if not selected:
+                print(f"skipping frame - local rad = {vg.local_rad}\n")
+                continue
+            selected_frames.append(count1)
+            view_id = vg.num_views - 1
+
+        with timer.stage("rotavg"):
+            add_correction = (gt_rots is not None
+                              and frame_id % cfg.gt_fix_every == 0)
+            if add_correction:
+                gi = frame_id * cfg.sampling_step
+                if gi < len(gt_rots):
+                    q = so3.rotmat_to_quat(torch.from_numpy(gt_rots[gi]))
+                    vg.fix_pose(view_id, q.numpy())
+                    print(f"Fixing pose for view id {frame_id}")
+            vg.rot_avg(cfg.global_win_size if add_correction
+                       else cfg.rotavg_win_size)
+            sync()
+
+        print(timer.frame_line(frame_id))
+        if frame_id % cfg.save_every == 0:
+            vg.save_poses(poses_path)
+            _save_ids(ids_path, selected_frames)
+        frame_id += 1
+
+    vg.save_poses(poses_path)
+    _save_ids(ids_path, selected_frames)
+    for name, s in timer.summary().items():
+        print(f"{name}: total {s['total_s']:.3f}s over {s['count']} "
+              f"frames (mean {s['mean_s'] * 1e3:.1f} ms)")
+    return 0
+
+
+def _save_ids(path: str, selected: list[int]) -> None:
+    """`saveSelectedFramesIds` (src/IRotAvg.cpp:111-128): the 1-based
+    running count at selection time, one per line."""
+    with open(path, "w") as fh:
+        for v in selected:
+            fh.write(f"{v}\n")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,100 @@
+"""Frame — per-image feature bundle of fixed-capacity tensors + mask.
+
+Port of ``irotavg_tpu/frontend/frame.py`` (constructor path).  The
+reference's ctor pipeline (extract -> undistort; src/Frame.hpp:54-64)
+runs as: extractor call -> (host) undistortion when k1 != 0.  Feature
+tensors live on the extractor's device, where the matchers and geometry
+read them; host (numpy) mirrors are fetched together, lazily, the first
+time host code reads any of them.  There is no ±1 descriptor expansion:
+the matcher kernel reads the (N, 8) int32 words.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from irotavg_tpu_torch.frontend.camera import Camera
+
+# feature tensors, in extractor-output order (+ undistorted coordinates)
+FIELDS = ("x", "y", "octave", "angle", "response", "size", "desc", "valid")
+_LAZY = FIELDS + ("xu", "yu")
+
+
+class Frame:
+    """Feature bundle for one image.
+
+    Attributes (N = extractor capacity, masked by ``valid``), each a lazy
+    host mirror of the device tensor :meth:`dev` returns: ``x, y`` level-0
+    keypoint coords; ``xu, yu`` undistorted coords; ``octave``; ``angle``
+    (radians); ``response``; ``size``; ``desc`` (N, 8) int32 words;
+    ``valid``.
+    """
+
+    def __init__(self, frame_id: int, image, extractor, camera: Camera):
+        self.id = frame_id
+        self.camera = camera
+        self._attach(extractor(image), camera)
+
+    @classmethod
+    def from_tensors(cls, frame_id: int, out: dict,
+                     camera: Camera) -> "Frame":
+        """A Frame from an extractor-style dict of tensors (``x0, y0`` or
+        ``x, y``, optionally ``xu, yu``)."""
+        self = cls.__new__(cls)
+        self.id = frame_id
+        self.camera = camera
+        self._attach(out, camera)
+        return self
+
+    def _attach(self, out: dict, camera: Camera) -> None:
+        self._device = {
+            "x": out.get("x0", out["x"]), "y": out.get("y0", out["y"]),
+            "octave": out["octave"], "angle": out["angle"],
+            "response": out["response"], "size": out["size"],
+            "desc": out["desc"], "valid": out["valid"],
+        }
+        self._host = None
+        self.bow = None
+        self.feat_nodes = None
+        if "xu" in out:
+            self._device["xu"], self._device["yu"] = out["xu"], out["yu"]
+        elif camera.has_distortion:
+            # host math (f64), uploaded once for the matchers
+            h = self._fetch_host()
+            xu, yu = camera.undistort_points(h["x"], h["y"])
+            h["xu"], h["yu"] = xu, yu
+            dev = self._device["x"].device
+            self._device["xu"] = torch.as_tensor(xu, dtype=torch.float32,
+                                                 device=dev)
+            self._device["yu"] = torch.as_tensor(yu, dtype=torch.float32,
+                                                 device=dev)
+        else:
+            self._device["xu"] = self._device["x"]
+            self._device["yu"] = self._device["y"]
+
+    def _fetch_host(self) -> dict:
+        """All host mirrors, fetched together once."""
+        if self._host is None:
+            self._host = {k: v.cpu().numpy() for k, v in self._device.items()}
+        return self._host
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if name in _LAZY:
+            return self._fetch_host()[name]
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}")
+
+    @property
+    def capacity(self) -> int:
+        """Feature-slot count N (shape only — no transfer)."""
+        return int(self._device["valid"].shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self._device["valid"].device
+
+    def dev(self, name: str):
+        """Device tensor of a feature array."""
+        return self._device[name]

@@ -1,0 +1,271 @@
+"""Two-view estimation loops of the per-frame path.
+
+Port of ``irotavg_tpu/geometry/fused.py``: the reference's `refinePose`
+(src/ViewGraph.cpp:725-783), `findInitialPose` (:828-902) and the window
+walk of `processFrame` (:1035-1145).  The reference runs each as one
+compiled ``lax.while_loop`` with all state on device; here each is a
+Python loop over device tensors that reads a few scalars back per
+iteration, with the same stopping rules: ``stall >= 2`` and
+``MAX_ITERS`` for the refine, ``MAX_TRIALS`` with the search radius
+x1.25 per retry for the initial pose, and the ``GATE_PX`` keyframe gate.
+Without a vocabulary the node arrays are zeros and the epipolar gate is
+``epipolar_nonode``.
+
+Matches travel as assignment vectors ``m12 (N1,)`` (row -> column or -1).
+The reference's ``vmap`` over the K window candidates is a batch axis
+here: the candidates' epipolar re-matching reaches the matcher kernel as
+one batched launch (``B = K``).  Random draws come from one
+``torch.Generator`` per frame, consumed in a fixed order.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from irotavg_tpu_torch.geometry.essential import (
+    ransac_essential, recover_pose,
+)
+from irotavg_tpu_torch.matching.matchers import (
+    _match_epipolar_core, _match_locally_core,
+)
+
+N_SAMPLES = 512        # minimal 8-point samples per RANSAC
+MAX_ITERS = 10         # refine alternations
+MAX_TRIALS = 6         # initial-pose radius escalations
+GATE_PX = 5.0          # keyframe gate on the mean match displacement
+
+
+def _norm_coords(x, y, cam):
+    fx, fy, cx, cy = cam.unbind(-1)
+    return torch.stack([(x - cx) / fx, (y - cy) / fy], dim=-1)
+
+
+def _ransac_from_assignment(m12, x1, y1, x2, y2, cam, th_norm, gen):
+    """RANSAC + cheirality over an assignment vector (rows of frame 1 ->
+    columns of frame 2).  Returns (E, R, t, n_che, pose_mask)."""
+    p1 = _norm_coords(x1, y1, cam)
+    j = m12.clamp(min=0)
+    p2 = _norm_coords(x2[j], y2[j], cam)
+    E, inl, _ = ransac_essential(p1, p2, m12 >= 0, gen, th_norm=th_norm,
+                                 n_samples=N_SAMPLES)
+    R, t, n_che, pose_mask = recover_pose(E, p1, p2, inl)
+    return E, R, t, n_che, pose_mask
+
+
+def _flip_assignment(m12_cp, n_prev):
+    """Current -> previous assignment flipped to previous -> current.
+    A target claimed by several rows keeps the largest row id (the
+    in-order "last writer wins" of the reference's scatter, made
+    deterministic with ``scatter_reduce(amax)``)."""
+    matched = m12_cp >= 0
+    rows = torch.arange(m12_cp.shape[0], device=m12_cp.device)
+    tgt = torch.where(matched, m12_cp, torch.full_like(m12_cp, n_prev))
+    out = torch.full((n_prev + 1,), -1, dtype=m12_cp.dtype,
+                     device=m12_cp.device)
+    out = out.scatter_reduce(0, tgt, torch.where(matched, rows, -1)
+                             .to(m12_cp.dtype), "amax")
+    return out[:n_prev]
+
+
+def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
+                 th_norm, gen, min_pairs):
+    """`refinePose` over a batch of B row frames against one column frame.
+
+    ``f1`` holds row-frame tensors with a leading batch axis
+    ``(desc, nodes, valid, angle, x, y, octave)``; ``f2`` the column
+    frame's ``(desc, nodes, valid, angle, x, y)``.  Each lane re-matches
+    with the epipolar gate of its current E, re-solves, and keeps the best
+    model while the cheirality count strictly grows; a lane stops when
+    the rematch is too small (< ``min_pairs``, <= 4), recovery gives <= 6
+    inliers, or after two re-solves without improvement.  Stopped lanes
+    are frozen.  Returns (E, R, t, best_n, best_m12, iters) per lane.
+    """
+    desc1, nodes1, valid1, angle1, x1, y1, oct1 = f1
+    desc2, nodes2, valid2, angle2, x2, y2 = f2
+    B = desc1.shape[0]
+    f32 = torch.float32
+    E_cur = E0.to(f32).clone()
+    E, R, t = E0.to(f32).clone(), R0.to(f32).clone(), t0.to(f32).clone()
+    best_n = n0.to(torch.int64).clone()
+    best_m12 = m12_0.to(torch.int64).clone()
+    done = [False] * B
+    stall = [0] * B
+    it = 0
+    while not all(done) and it < MAX_ITERS:
+        lanes = [b for b in range(B) if not done[b]]
+        sel = torch.tensor(lanes, device=desc1.device)
+        F = K_inv.T @ E_cur[sel] @ K_inv
+        m12 = _match_epipolar_core(
+            desc1[sel], nodes1[sel], valid1[sel], angle1[sel], x1[sel],
+            y1[sel], oct1[sel], desc2, nodes2, valid2, angle2, x2, y2,
+            F, sigma2, has_nodes=False)
+        counts = (m12 >= 0).sum(dim=1).tolist()
+        for k, b in enumerate(lanes):
+            # fresh hypotheses every re-solve (no model seeding): a seeded
+            # pool locks into a model that cheirality rejects
+            E_new, R_new, t_new, n_new, pose_mask = _ransac_from_assignment(
+                m12[k], x1[b], y1[b], x2, y2, cam, th_norm, gen)
+            n_new = int(n_new)
+            usable = (counts[k] >= min_pairs and counts[k] > 4
+                      and n_new > 6)
+            improved = usable and n_new > int(best_n[b])
+            if improved:
+                E[b], R[b], t[b] = E_new, R_new, t_new
+                best_n[b] = n_new
+                best_m12[b] = torch.where(pose_mask, m12[k],
+                                          torch.full_like(m12[k], -1))
+            if usable:
+                E_cur[b] = E_new
+            stall[b] = 0 if improved else stall[b] + 1
+            done[b] = (not usable) or stall[b] >= 2
+        it += 1
+    return E, R, t, best_n, best_m12, it
+
+
+def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, gen, min_inliers,
+                       nnratio):
+    """`findInitialPose`'s adaptive-radius search.
+
+    ``fc`` / ``fp`` are the current / previous frame tensors ``(desc,
+    valid, octave, x, y)``.  Matches current -> previous in a window of
+    the escalating radius (x1.25 per retry), sets ``local_rad`` to the
+    mean match displacement, and accepts once cheirality inliers exceed
+    ``min_inliers``.  Returns (E, R, t, n_che, m12, local_rad, rel_valid,
+    accepted); the pose maps previous -> current.
+    """
+    desc_c, valid_c, oct_c, x_c, y_c = fc
+    desc_p, valid_p, oct_p, x_p, y_p = fp
+    dev = x_c.device
+    f32 = torch.float32
+    rad = 2.0 * float(local_rad0)
+    local_rad = torch.tensor(float(local_rad0), dtype=f32, device=dev)
+    E = torch.eye(3, dtype=f32, device=dev)
+    R = torch.eye(3, dtype=f32, device=dev)
+    t = torch.zeros(3, dtype=f32, device=dev)
+    n_che = 0
+    m12_best = torch.full(x_c.shape, -1, dtype=torch.int64, device=dev)
+    valid_rel = False
+    accepted = False
+    for _ in range(MAX_TRIALS):
+        m12 = _match_locally_core(desc_c, valid_c, oct_c, x_c, y_c,
+                                  desc_p, valid_p, oct_p, x_p, y_p,
+                                  rad, nnratio)
+        matched = m12 >= 0
+        j = m12.clamp(min=0)
+        count = int(matched.sum())
+        disp = torch.hypot(x_c - x_p[j], y_c - y_p[j])
+        if count > 0:
+            local_rad = (torch.where(matched, disp, torch.zeros_like(disp))
+                         .sum() / count).to(f32)
+        rad = float(torch.tensor(rad, dtype=f32) * 1.25)   # in f32
+        if count <= 4:
+            # too few: local_rad = 1 fails the keyframe gate downstream;
+            # the previous trial's pose is kept
+            local_rad = torch.ones((), dtype=f32, device=dev)
+            accepted = False
+            break
+        # pose: previous -> current, so frame-1 coordinates come via m12
+        p1 = _norm_coords(x_p[j], y_p[j], cam)
+        p2 = _norm_coords(x_c, y_c, cam)
+        E, inl, _ = ransac_essential(p1, p2, matched, gen, th_norm=th_norm,
+                                     n_samples=N_SAMPLES)
+        R, t, n_new, pose_mask = recover_pose(E, p1, p2, inl)
+        n_che = int(n_new)
+        valid_rel = n_che > 6
+        accepted = valid_rel and n_che > min_inliers
+        m12_best = (torch.where(pose_mask, m12, torch.full_like(m12, -1))
+                    if accepted else m12)
+        if accepted:
+            break
+    return E, R, t, n_che, m12_best, local_rad, valid_rel, accepted
+
+
+def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
+                         th_norm, gen, min_matches):
+    """The window walk's per-older-view RANSAC + refinement, batched over
+    the K candidates (leading axis of ``fw`` and ``m12_0``; ``active`` a
+    host list of bools).  Returns (E, R, t, n_che, m12, success) with
+    leading axis K; the caller stops at the first failure."""
+    desc_w, nodes_w, valid_w, angle_w, x_w, y_w, oct_w = fw
+    x2, y2 = f2[4], f2[5]
+    K = desc_w.shape[0]
+    dev = x2.device
+    f32 = torch.float32
+    E = torch.zeros((K, 3, 3), dtype=f32, device=dev)
+    R = torch.eye(3, dtype=f32, device=dev).repeat(K, 1, 1)
+    t = torch.zeros((K, 3), dtype=f32, device=dev)
+    n = torch.zeros(K, dtype=torch.int64, device=dev)
+    m12 = torch.full(m12_0.shape, -1, dtype=torch.int64, device=dev)
+    rel_ok = [False] * K
+    refine = []
+    for k in range(K):
+        if not active[k]:
+            continue          # the reference discards these lanes
+        count0 = int((m12_0[k] >= 0).sum())
+        E0, R0, t0, n0, pose_mask = _ransac_from_assignment(
+            m12_0[k], x_w[k], y_w[k], x2, y2, cam, th_norm, gen)
+        E[k], R[k], t[k], n[k] = E0, R0, t0, n0
+        m12[k] = torch.where(pose_mask, m12_0[k],
+                             torch.full_like(m12_0[k], -1))
+        rel_ok[k] = count0 > 4 and int(n0) > 6
+        if rel_ok[k] and int((m12[k] >= 0).sum()) > 10:
+            refine.append(k)
+    if refine:
+        sel = torch.tensor(refine, device=dev)
+        cnt = (m12[sel] >= 0).sum(dim=1)
+        Er, Rr, tr, nr, m12r, _ = fused_refine(
+            tuple(a[sel] for a in fw), f2, E[sel], R[sel], t[sel], cnt,
+            m12[sel], K_inv, sigma2, cam, th_norm, gen,
+            math.ceil(0.75 * min_matches))
+        E[sel], R[sel], t[sel], n[sel], m12[sel] = Er, Rr, tr, nr, m12r
+    final = (m12 >= 0).sum(dim=1).tolist()
+    success = [rel_ok[k] and final[k] >= min_matches for k in range(K)]
+    return E, R, t, n, m12, success
+
+
+def fused_process_frame(fc, fp, fw, m12_w2p, active_w, local_rad0, K_inv,
+                        sigma2, cam, th_norm, gen, min_matches, min_inliers,
+                        nnratio):
+    """The whole per-frame pipeline: adaptive initial pose, the 5 px
+    keyframe gate, and for accepted frames the epipolar refine of the
+    initial pose plus the pivot-chained window walk
+    (src/ViewGraph.cpp:1035-1145).
+
+    Frames are tuples ``(desc, nodes, valid, angle, x, y, octave)``; ``fw``
+    stacks the K window candidates.  Returns ``(local_rad, rel_valid,
+    refined, window)`` where ``refined = (E, R, t, n, m12_pc)`` (previous
+    row -> current column) and ``window`` is as in
+    :func:`fused_window_connect`; both are None when the gate rejects.
+    """
+    desc_c, nodes_c, valid_c, angle_c, x_c, y_c, oct_c = fc
+    desc_p, nodes_p, valid_p, angle_p, x_p, y_p, oct_p = fp
+    E0, R0, t0, _n0, m12_cp, local_rad, rel_valid, _acc = _initial_pose_core(
+        (desc_c, valid_c, oct_c, x_c, y_c),
+        (desc_p, valid_p, oct_p, x_p, y_p),
+        local_rad0, cam, th_norm, gen, min_inliers, nnratio)
+    local_rad = float(local_rad)
+    if not local_rad >= GATE_PX:
+        return local_rad, rel_valid, None, None
+
+    # refine the initial pose in the previous -> current orientation
+    m12_pc0 = _flip_assignment(m12_cp, x_p.shape[0])
+    cnt0 = (m12_pc0 >= 0).sum()
+    min_pairs = math.ceil(0.75 * min_matches)
+    Er, Rr, tr, nr, m12_pc, _ = fused_refine(
+        tuple(a[None] for a in fp), fc[:6], E0[None], R0[None], t0[None],
+        cnt0[None], m12_pc0[None], K_inv, sigma2, cam, th_norm, gen,
+        min_pairs)
+    refined = (Er[0], Rr[0], tr[0], nr[0], m12_pc[0])
+
+    # pivot chaining: candidate row -> pivot row -> current column
+    j = m12_w2p.clamp(min=0)
+    m12_w2c = torch.where(m12_w2p >= 0, m12_pc[0][j],
+                          torch.full_like(m12_w2p, -1))
+    n_chain = (m12_w2c >= 0).sum(dim=1).tolist()
+    active = [bool(a) and c > 5 for a, c in zip(active_w, n_chain)]
+    window = fused_window_connect(
+        fw, m12_w2c, active, fc[:6], K_inv, sigma2, cam, th_norm, gen,
+        min_matches)
+    return local_rad, rel_valid, refined, window

@@ -1,0 +1,73 @@
+"""Carry state from the JAX package into the port (numpy in, tensors out).
+
+The parity tests use these to put identical features and solver state
+into both packages.  Nothing here imports JAX: inputs are the host
+(numpy) arrays of a reference ``Frame`` or ``IncrementalRotAvg``.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+
+import numpy as np
+import torch
+
+from irotavg_tpu_torch.device import pick_device
+
+FRAME_FIELDS = ("x", "y", "xu", "yu", "octave", "angle", "response", "size",
+                "desc", "valid")
+_DTYPES = {"x": torch.float32, "y": torch.float32, "xu": torch.float32,
+           "yu": torch.float32, "octave": torch.int32,
+           "angle": torch.float32, "response": torch.float32,
+           "size": torch.float32, "valid": torch.bool}
+
+
+def frame_from_arrays(d: dict, camera, device=None):
+    """A port ``Frame`` from a reference Frame's host arrays (the fields
+    ``x y xu yu octave angle response size desc valid``; ``desc`` as
+    (N, 8) uint32 words, carried as int32 bit patterns)."""
+    from irotavg_tpu_torch.frontend.frame import Frame
+
+    dev = pick_device(device)
+    out = {k: torch.as_tensor(np.array(d[k]), dtype=_DTYPES[k], device=dev)
+           for k in FRAME_FIELDS if k != "desc"}
+    desc = np.ascontiguousarray(np.asarray(d["desc"]).astype(np.uint32))
+    out["desc"] = torch.from_numpy(desc.view(np.int32).copy()).to(dev)
+    return Frame.from_tensors(0, out, camera)
+
+
+def incremental_from_arrays(Q, fixed, edges, QQ, device=None):
+    """A port ``IncrementalRotAvg`` holding the reference solver state
+    (absolute rotations ``Q``, pins ``fixed``, ``edges`` (m, 2) with
+    i < j, relative rotations ``QQ``)."""
+    from irotavg_tpu_torch.engine.incremental import IncrementalRotAvg
+
+    ra = IncrementalRotAvg(device=device)
+    ra.Q = np.array(Q, np.float64).reshape(-1, 4)
+    ra.fixed = np.array(fixed, bool).reshape(-1)
+    ra._edges_by_max = [[] for _ in range(ra.num_views)]
+    for i, j in np.asarray(edges, np.int64).reshape(-1, 2):
+        ra.add_edge(int(i), int(j), np.zeros(4))
+    ra.QQ = np.array(QQ, np.float64).reshape(-1, 4)
+    return ra
+
+
+def orb_pattern_matches_reference(path: str | None = None) -> bool:
+    """True when the copied ORB pattern equals the reference's table
+    (read from ``irotavg_tpu/ops/orb_pattern.py`` as source, so that no
+    JAX import happens)."""
+    from irotavg_tpu_torch.ops.orb_pattern import ORB_PATTERN
+
+    if path is None:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        path = os.path.join(repo, "irotavg_tpu", "ops", "orb_pattern.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", None) == "ORB_PATTERN"):
+            table = np.array(ast.literal_eval(node.value.args[0]))
+            return table.shape == ORB_PATTERN.shape and bool(
+                np.array_equal(table, ORB_PATTERN))
+    return False

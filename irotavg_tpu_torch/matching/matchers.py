@@ -1,0 +1,147 @@
+"""Descriptor matchers as masked best-2 reductions.
+
+Port of ``irotavg_tpu/matching/matchers.py`` (parity contracts of
+src/ViewGraph.cpp :125-295 BoW, :298-437 epipolar, :440-569 local).  The
+best-2 reduction is :func:`irotavg_tpu_torch.ops.match.best2` — the CUDA
+kernel on the card.  Every core takes an optional leading batch axis on
+the row side (window candidates); the column frame may be shared.
+
+Kept from the reference, deliberately: a contested target keeps the
+globally smallest distance (ties -> smaller row), and the rotation
+histogram bins by ``round(delta_deg / 30)`` (only bins 0..12 are ever
+populated — the ORB-SLAM2 quirk).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from irotavg_tpu_torch.ops.match import best2, make_colf, make_rowf
+
+TH_LOW = 50          # src/ViewGraph.cpp:33
+HISTO_LENGTH = 30    # src/ViewGraph.cpp:32
+_BIG = 10_000
+
+
+def _best_two(desc1, desc2, rowf, colf, gate):
+    """(d1, d2) as int32 and the best column as int64."""
+    batch = desc1.shape[:-2]
+    if desc2.dim() < desc1.dim():        # shared column frame
+        desc2 = desc2.expand(batch + desc2.shape).contiguous()
+    if colf.dim() < rowf.dim():
+        colf = colf.expand(batch + colf.shape).contiguous()
+    d1, d2, idx = best2(desc1, desc2, rowf, colf, gate)
+    return d1.to(torch.int32), d2.to(torch.int32), idx.long()
+
+
+def _resolve_conflicts(matches12, dists, n2):
+    """Keep, for each contested target j, the row with minimal distance
+    (ties -> smaller row index)."""
+    n1 = matches12.shape[-1]
+    j = torch.where(matches12 >= 0, matches12,
+                    torch.full_like(matches12, n2))
+    rows = torch.arange(n1, device=matches12.device)
+    key = dists.long() * (n1 + 1) + rows
+    best_key = torch.full(matches12.shape[:-1] + (n2 + 1,),
+                          _BIG * (n1 + 1) + n1, dtype=torch.int64,
+                          device=matches12.device)
+    best_key = best_key.scatter_reduce(-1, j, key, "amin")
+    winner = best_key.gather(-1, j) == key
+    return torch.where((matches12 >= 0) & winner, matches12,
+                       torch.full_like(matches12, -1))
+
+
+def _rot_bins(angle1_rad, angle2_rad, matches12):
+    """The reference's histogram bin per row (quirk included)."""
+    a1 = torch.rad2deg(angle1_rad)
+    a2 = torch.rad2deg(angle2_rad)
+    if a2.dim() < matches12.dim():
+        a2 = a2.expand(matches12.shape[:-1] + a2.shape)
+    rot = a1 - a2.gather(-1, matches12.clamp(min=0))
+    rot = torch.where(rot < 0, rot + 360.0, rot)
+    bins = torch.round(rot * (1.0 / HISTO_LENGTH)).to(torch.int64)
+    return torch.where(bins == HISTO_LENGTH, torch.zeros_like(bins), bins)
+
+
+def rotation_consistency_filter(matches12, angle1_rad, angle2_rad):
+    """Drop matches outside the 3 dominant rotation-histogram bins
+    (``computeThreeMaxima``, src/ViewGraph.cpp:64-103: second/third
+    maxima kept only if >= 0.1x the first)."""
+    bins = _rot_bins(angle1_rad, angle2_rad, matches12)
+    valid = matches12 >= 0
+    counts = torch.zeros(matches12.shape[:-1] + (HISTO_LENGTH,),
+                         dtype=torch.int64, device=matches12.device)
+    counts = counts.scatter_add(-1, torch.where(valid, bins, 0),
+                                valid.long())
+
+    def top(c):
+        i = torch.argmax(c, dim=-1, keepdim=True)   # first occurrence
+        return c.gather(-1, i), i, c.scatter(-1, i, -1)
+
+    c1, i1, counts2 = top(counts)
+    c2, i2, counts3 = top(counts2)
+    c3, i3, _ = top(counts3)
+    keep2 = c2.float() >= 0.1 * c1.float()
+    keep3 = c3.float() >= 0.1 * c1.float()
+    ok = (bins == i1) | (keep2 & (bins == i2)) | (keep2 & keep3 & (bins == i3))
+    return torch.where(valid & ok, matches12, torch.full_like(matches12, -1))
+
+
+def _match_by_bow_core(desc1, nodes1, valid1, angle1,
+                       desc2, nodes2, valid2, angle2,
+                       nnratio, has_nodes=True):
+    rowf = make_rowf(valid1, node=nodes1)
+    colf = make_colf(valid2, node=nodes2)
+    d1, d2, best = _best_two(desc1, desc2, rowf, colf,
+                             "node" if has_nodes else "none")
+    ok = (d1 <= TH_LOW) & (d1.float() < nnratio * d2.float())
+    matches12 = torch.where(ok, best, torch.full_like(best, -1))
+    matches12 = _resolve_conflicts(matches12, d1, desc2.shape[-2])
+    return rotation_consistency_filter(matches12, angle1, angle2)
+
+
+def epipolar_lines(x2, y2, F12):
+    """Line of p2 through F12^T, evaluated later at p1 (reference argument
+    order), each product and sum rounded separately."""
+    a = x2 * F12[..., 0, 0, None] + y2 * F12[..., 1, 0, None] + \
+        F12[..., 2, 0, None]
+    b = x2 * F12[..., 0, 1, None] + y2 * F12[..., 1, 1, None] + \
+        F12[..., 2, 1, None]
+    c = x2 * F12[..., 0, 2, None] + y2 * F12[..., 1, 2, None] + \
+        F12[..., 2, 2, None]
+    return a, b, c
+
+
+def _match_epipolar_core(desc1, nodes1, valid1, angle1, x1, y1, oct1,
+                         desc2, nodes2, valid2, angle2, x2, y2,
+                         F12, sigma2_oct, has_nodes=True):
+    a, b, c = epipolar_lines(x2, y2, F12)
+    th = 3.84 * sigma2_oct[oct1.long()]
+    rowf = make_rowf(valid1, node=nodes1, x=x1, y=y1, th=th)
+    colf = make_colf(torch.as_tensor(valid2).expand(a.shape), node=nodes2,
+                     a=a, b=b, c=c)
+    gate = "epipolar" if has_nodes else "epipolar_nonode"
+    d1, _, best = _best_two(desc1, desc2, rowf, colf, gate)
+    matches12 = torch.where(d1 <= TH_LOW, best, torch.full_like(best, -1))
+    matches12 = _resolve_conflicts(matches12, d1, desc2.shape[-2])
+    return rotation_consistency_filter(matches12, angle1, angle2)
+
+
+def _match_locally_core(desc1, valid1, oct1, gx, gy,
+                        desc2, valid2, oct2, x2, y2, radius, nnratio):
+    # square search window (Frame::getFeaturesInArea filters |dx|,|dy| <= r)
+    rowf = make_rowf(valid1, x=gx, y=gy, octave=oct1,
+                     th=torch.full(gx.shape, float(radius),
+                                   dtype=torch.float32, device=gx.device))
+    colf = make_colf(valid2, x=x2, y=y2, octave=oct2)
+    d1, d2, best = _best_two(desc1, desc2, rowf, colf, "local")
+    ok = (d1 <= TH_LOW) & (d1.float() < nnratio * d2.float())
+    matches12 = torch.where(ok, best, torch.full_like(best, -1))
+    return _resolve_conflicts(matches12, d1, desc2.shape[-2])
+
+
+def matches_to_pairs(m: np.ndarray) -> np.ndarray:
+    """(N1,) host assignment vector -> (M, 2) index pairs."""
+    i = np.where(m >= 0)[0]
+    return np.stack([i, m[i]], axis=1).astype(np.int32)

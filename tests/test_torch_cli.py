@@ -1,0 +1,76 @@
+"""The port's ``irotavg`` CLI, in-process, on PGM frames: the output
+contract of test_app.py:147-155, the not-ported options, and the
+matcher's CPU dispatch."""
+
+import numpy as np
+import pytest
+import torch
+
+from irotavg_tpu_torch.app import irotavg as port_cli
+from irotavg_tpu_torch.ops import match
+from irotavg_tpu_torch.utils.sequence import read_pgm, write_pgm
+from seqgen import make_sequence
+
+# xdist runs several workers on the same cores; torch's default
+# intra-op pool per worker oversubscribes them many times over
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def sequence():
+    return make_sequence(n_frames=6, seed=1, step=0.3,
+                         yaw_deg_per_frame=-1.0)
+
+
+def test_cli_output_contract(tmp_path, sequence):
+    """The port's CLI on 6 PGM frames (the contract of test_app.py:147-155)."""
+    frames, K, R_gt = sequence
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    for i, im in enumerate(frames):
+        write_pgm(str(seq / f"{i:06d}.pgm"), im)
+    assert np.array_equal(read_pgm(str(seq / "000000.pgm")), frames[0])
+    np.savetxt(tmp_path / "gt.txt", R_gt.reshape(6, 9))
+    yaml = tmp_path / "cam.yaml"
+    yaml.write_text(
+        "%YAML:1.0\n"
+        f"Camera.fx: {K[0, 0]}\nCamera.fy: {K[1, 1]}\n"
+        f"Camera.cx: {K[0, 2]}\nCamera.cy: {K[1, 2]}\n"
+        "Camera.k1: 0.0\nCamera.k2: 0.0\nCamera.p1: 0.0\nCamera.p2: 0.0\n"
+        "ORBextractor.nFeatures: 1200\nORBextractor.scaleFactor: 1.2\n"
+        "ORBextractor.nLevels: 8\nORBextractor.iniThFAST: 20\n"
+        "ORBextractor.minThFAST: 7\n")
+    out = tmp_path / "out"
+    rc = port_cli.main(["none", str(yaml), str(seq), "--image_ext", ".pgm",
+                        "--gt", str(tmp_path / "gt.txt"),
+                        "--out_dir", str(out)])
+    assert rc == 0
+    poses = (out / "rotavg_poses.txt").read_text().strip().splitlines()
+    ids = (out / "rotavg_poses_ids.txt").read_text().strip().splitlines()
+    assert len(poses) >= 4 and len(ids) == len(poses)
+    row = poses[0].split("\t")
+    assert len(row) == 8                      # id + q(4) + t(3)
+    assert [float(v) for v in row[5:]] == [0.0, 0.0, 0.0]
+    q = np.array([float(v) for v in row[1:5]])
+    assert np.linalg.norm(q) == pytest.approx(1.0, abs=1e-6)
+
+
+@pytest.mark.parametrize("argv", [
+    ["vocab.txt"], ["none", "--checkpoint"], ["none", "--resume", "x"],
+    ["none", "--plot_matches", "d"], ["none", "--trace_dir", "d"],
+])
+def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys):
+    args = [argv[0], "cfg.yaml", str(tmp_path)] + argv[1:]
+    assert port_cli.main(args) == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_matcher_runs_plain_version_on_cpu(sequence):
+    """On CPU tensors the wrapper takes the plain version and launches
+    nothing."""
+    before = match.best2.launches
+    d = torch.zeros((4, 8), dtype=torch.int32)
+    f = torch.ones((4, 8))
+    d1, d2, idx = match.best2(d, d, f, f, "none")
+    assert match.best2.launches == before
+    assert d1.tolist() == [0.0] * 4 and idx.tolist() == [0] * 4
