@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--frames 300] [--out DIR]
+    python3 chip_smoke.py [--out DIR]
 
 Run from the root of a checkout.  Phases (any failure exits non-zero and
 prints no result line):
@@ -13,11 +13,23 @@ prints no result line):
 2. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes, required exactly equal; median times of both
    over 20 runs (CUDA events).
-3. main path — renders a synthetic KITTI-sized sequence (1241x376, KITTI
-   00 intrinsics) with numpy, writes it as PGM with a GT file and an
-   ORB-SLAM YAML (2000 features), runs the port's ``irotavg`` CLI on it
-   with launch counters reset just before, and checks the kernel counts,
-   the output files and the rotation RMSE against GT.
+3. main path — renders the first 150 frames of a one-lap synthetic
+   KITTI-sized sequence (1241x376, KITTI 00 intrinsics, 300 frames a lap)
+   with numpy, writes them as PGM with a GT file and an ORB-SLAM YAML
+   (2000 features), runs the port's ``irotavg`` CLI on them with
+   ``VOCAB=none`` and GT pins every 20 frames, launch counters reset just
+   before, and checks the kernel counts, the output files and the
+   rotation RMSE against GT.
+4. loop closure — renders a one-way orbit of two laps (241 frames, the
+   orbit shrinking by 1 m, so lap 2 revisits lap 1 from a slightly
+   different pose) at the same size, decompresses the repo's k=10, L=5 DBoW2 vocabulary
+   (``tests/data/product_vocab_k10_L5_v1.txt.gz``), times its parse and
+   the per-frame tree descent, and runs the CLI twice with no GT pins so
+   that drift accumulates: A with loop closure, B with
+   ``--no_loop_closure``.  Fails unless both runs succeed, A makes a loop
+   edge spanning more than 10 views, A launches the matcher under the
+   ``node`` and ``epipolar`` gates, and 2 * RMSE_A < RMSE_B (the payoff
+   tests/test_loop_payoff.py asserts for the reference).
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -27,6 +39,7 @@ The second-to-last stdout line is the kernel report
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import shutil
@@ -50,6 +63,20 @@ KITTI_K = (718.856, 718.856, 607.1928, 185.2157)
 # 20 frames like the reference CLI; the JAX reference reaches 0.61 deg on
 # the 300-frame sequence (run on a CPU)
 RMSE_BOUND_DEG = 1.0
+MAIN_LAP_FRAMES = 300          # frames in phase 3's one-lap sequence
+MAIN_FRAMES = 150              # phase 3 runs the first half of the lap
+# phase 4: two laps over an odd frame count on an orbit that shrinks by
+# 1 m, so lap 2 passes lap 1's places half a frame step later and 0.5 m
+# further in (a revisit under a pose change, not a copy of lap 1)
+LOOP_FRAMES = 241
+LOOP_SPIRAL = 1.0
+# the loop-closure payoff asserted for the reference
+# (tests/test_loop_payoff.py) and the shortest loop edge that counts as a
+# revisit (beyond the 4-view window walk and its chains)
+LOOP_PAYOFF = 2.0
+LOOP_MIN_SPAN = 10
+VOCAB_FIXTURE = os.path.join(HERE, "tests", "data",
+                             "product_vocab_k10_L5_v1.txt.gz")
 
 
 class SmokeError(RuntimeError):
@@ -287,9 +314,14 @@ def _render(planes, R, t, K, w, h):
     return np.clip(np.rint(canvas), 0, 255).astype(np.uint8)
 
 
-def render_sequence(n_frames, seed=0, laps=1.0, cam_radius=4.0):
+def render_sequence(n_frames, seed=0, laps=1.0, cam_radius=4.0, spiral=0.0,
+                    first=None):
     """A one-way orbit inside the panel ring at the KITTI 00 frame size and
-    intrinsics.  Returns (frames [uint8 (376, 1241)], K, R_gt world->cam)."""
+    intrinsics, ``laps`` laps over ``n_frames`` frames, of which the
+    ``first`` (default all) are rendered.  The orbit's radius shrinks
+    linearly by ``spiral`` over the run, so a later lap passes the earlier
+    one's places from further in.  Returns (frames [uint8 (376, 1241)], K,
+    R_gt world->cam)."""
     from scipy.spatial.transform import Rotation as Rsc
 
     rng = np.random.default_rng(seed)
@@ -297,10 +329,10 @@ def render_sequence(n_frames, seed=0, laps=1.0, cam_radius=4.0):
     K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
     planes = _ring_world(rng)
     frames, R_gt = [], []
-    for k in range(n_frames):
+    for k in range(n_frames if first is None else first):
         phi = 2 * np.pi * laps * k / n_frames
-        C = np.array([cam_radius * np.sin(phi), 0.0,
-                      cam_radius * np.cos(phi)])
+        radius = cam_radius - spiral * k / n_frames
+        C = np.array([radius * np.sin(phi), 0.0, radius * np.cos(phi)])
         R = Rsc.from_euler("y", -phi).as_matrix()
         frames.append(_render(planes, R, -R @ C, K, KITTI_W, KITTI_H))
         R_gt.append(R)
@@ -325,11 +357,11 @@ ORBextractor.minThFAST: 7
 """
 
 
-def write_sequence(out, n_frames, seed=0):
+def write_sequence(out, n_frames, **render):
     """Render and write the PGM frames, the 9-column GT and the YAML."""
     from irotavg_tpu_torch.utils.sequence import write_pgm
 
-    frames, K, R_gt = render_sequence(n_frames, seed=seed)
+    frames, K, R_gt = render_sequence(n_frames, **render)
     seq = os.path.join(out, "seq")
     os.makedirs(seq, exist_ok=True)
     for i, im in enumerate(frames):
@@ -364,59 +396,186 @@ def rotation_rmse_deg(poses_path, ids_path, R_gt):
     return float(np.sqrt(np.mean(err ** 2))), len(ids)
 
 
-def phase_main_path(card, n_frames, out):
+def run_cli(argv, out, name):
+    """The port's CLI in-process, stdout to ``out/name.log``, with the
+    matcher's launch counters set to 0 just before and read just after.
+    Returns (log, wall seconds, launches, launches by gate); raises when
+    the CLI returns non-zero."""
     import contextlib
 
     from irotavg_tpu_torch.app import irotavg
     from irotavg_tpu_torch.ops import match
 
-    t0 = time.perf_counter()
-    seq, gt, yaml, R_gt = write_sequence(out, n_frames)
-    print(f"[main] rendered {n_frames} frames {KITTI_W}x{KITTI_H} in "
-          f"{time.perf_counter() - t0:.1f} s (host numpy)")
-    res = os.path.join(out, "out")
-    log_path = os.path.join(out, "irotavg.log")
-    try:
-        with open(log_path, "w", buffering=1) as fh:      # line-buffered
-            match.best2.launches = 0
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(fh):
-                rc = irotavg.main(["none", yaml, seq, "--image_ext", ".pgm",
-                                   "--gt", gt, "--out_dir", res])
-            wall = time.perf_counter() - t0
-            launches = match.best2.launches
-    finally:
-        shutil.rmtree(seq)         # the frames are regenerated from the seed
+    log_path = os.path.join(out, f"{name}.log")
+    with open(log_path, "w", buffering=1) as fh:           # line-buffered
+        match.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(fh):
+            rc = irotavg.main(argv)
+        wall = time.perf_counter() - t0
+        launches = match.best2.launches
+        by_gate = dict(match.best2.launches_by_gate)
     with open(log_path) as fh:
         log = fh.read()
     if rc != 0:
-        raise SmokeError(f"irotavg CLI returned {rc}; log tail:\n"
+        raise SmokeError(f"irotavg CLI ({name}) returned {rc}; log tail:\n"
                          + log[-2000:])
+    return log, wall, launches, by_gate
+
+
+def _stage_lines(tag, log, card):
+    for line in log.splitlines():
+        if " frames (mean " in line:
+            print(f"[{tag}] {line}  ({card})")
+
+
+def _stage_totals(log):
+    """stage name -> total seconds from the CLI's summary lines."""
+    out = {}
+    for line in log.splitlines():
+        if " frames (mean " in line:
+            name, rest = line.split(": total ", 1)
+            out[name] = float(rest.split("s over")[0])
+    return out
+
+
+def phase_main_path(card, out):
+    t0 = time.perf_counter()
+    seq, gt, yaml, R_gt = write_sequence(out, MAIN_LAP_FRAMES,
+                                         first=MAIN_FRAMES)
+    print(f"[main] rendered {MAIN_FRAMES} of {MAIN_LAP_FRAMES} frames "
+          f"{KITTI_W}x{KITTI_H} in {time.perf_counter() - t0:.1f} s "
+          f"(host numpy)")
+    res = os.path.join(out, "out")
+    try:
+        log, wall, launches, by_gate = run_cli(
+            ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
+             "--out_dir", res, "--max_frames", str(MAIN_FRAMES)],
+            out, "irotavg")
+    finally:
+        shutil.rmtree(seq)         # the frames are regenerated from the seed
     if launches <= 0:
         raise SmokeError("the main path never launched match_best2")
     rmse, n_key = rotation_rmse_deg(os.path.join(res, "rotavg_poses.txt"),
                                     os.path.join(res, "rotavg_poses_ids.txt"),
                                     R_gt)
-    print(f"[main] frames {n_frames}, keyframes {n_key}, match_best2 "
-          f"launches {launches}  ({card})")
+    print(f"[main] frames {MAIN_FRAMES}, keyframes {n_key}, match_best2 "
+          f"launches {launches}, by gate {json.dumps(by_gate)}  ({card})")
     print(f"[main] rotation RMSE {rmse:.4f} deg (bound {RMSE_BOUND_DEG})  "
           f"({card})")
-    for line in log.splitlines():
-        if " frames (mean " in line:
-            print(f"[main] {line}  ({card})")
-    print(f"[main] {n_frames / wall:.3f} frames/s end to end ({wall:.1f} s, "
-          f"first frame includes CUDA start-up)  ({card})")
+    _stage_lines("main", log, card)
+    print(f"[main] {MAIN_FRAMES / wall:.3f} frames/s end to end ({wall:.1f} "
+          f"s, first frame includes CUDA start-up)  ({card})")
     if not np.isfinite(rmse) or rmse >= RMSE_BOUND_DEG:
         raise SmokeError(f"rotation RMSE {rmse} deg is not under "
                          f"{RMSE_BOUND_DEG}")
-    return {"match_best2": launches}
+    return launches, by_gate
+
+
+# -- phase 4: place recognition and loop closure ------------------------------
+
+
+def _vocab_timings(card, vocab_path, seq):
+    """Parse seconds of the vocabulary, and the tree descent of one real
+    frame's 2000 descriptors: device ms (CUDA events) and the whole
+    transform's ms (descent + one fetch + host assembly)."""
+    import torch
+
+    from irotavg_tpu_torch.frontend.orb import ORBExtractor
+    from irotavg_tpu_torch.placerec.vocabulary import Vocabulary
+    from irotavg_tpu_torch.utils.sequence import load_gray
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    vocab = Vocabulary.load_text(vocab_path, device=dev)
+    parse_s = time.perf_counter() - t0
+    ext = ORBExtractor(n_features=2000, n_levels=8, device=dev)
+    out = ext(load_gray(os.path.join(seq, "000000.pgm")))
+    desc, valid = out["desc"], out["valid"]
+    descend_ms = _median_ms(torch, lambda: vocab.descend(desc, valid))
+    vocab.transform(desc, valid)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        bow, nodes = vocab.transform(desc, valid)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"[loop] vocabulary k={vocab.k} L={vocab.L}: {len(vocab.children)} "
+          f"nodes, {vocab.n_words} words, parsed in {parse_s:.3f} s (host "
+          f"numpy)  ({card})")
+    print(f"[loop] tree descent of {int(valid.sum())} descriptors: "
+          f"{descend_ms:.4f} ms on the device (median of 20, CUDA events); "
+          f"transform with fetch and host assembly "
+          f"{statistics.median(times):.4f} ms ({len(bow)} words)  ({card})")
+
+
+def phase_loop_closure(card, out):
+    import gzip
+
+    n_frames = LOOP_FRAMES
+    t0 = time.perf_counter()
+    seq, _gt, yaml, R_gt = write_sequence(out, n_frames, laps=2.0,
+                                          spiral=LOOP_SPIRAL)
+    vocab = os.path.join(out, "vocab.txt")
+    with gzip.open(VOCAB_FIXTURE, "rb") as src, open(vocab, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    print(f"[loop] rendered {n_frames} frames (two laps, orbit shrinking by "
+          f"{LOOP_SPIRAL} m) {KITTI_W}x{KITTI_H} and decompressed the "
+          f"vocabulary in "
+          f"{time.perf_counter() - t0:.1f} s (host numpy)")
+    runs = {}
+    try:
+        _vocab_timings(card, vocab, seq)
+        for name, extra in (("A", []), ("B", ["--no_loop_closure"])):
+            res = os.path.join(out, f"out_{name}")
+            log, wall, launches, by_gate = run_cli(
+                [vocab, yaml, seq, "--image_ext", ".pgm", "--out_dir", res]
+                + extra, out, f"irotavg_{name}")
+            rmse, n_key = rotation_rmse_deg(
+                os.path.join(res, "rotavg_poses.txt"),
+                os.path.join(res, "rotavg_poses_ids.txt"), R_gt)
+            runs[name] = dict(log=log, wall=wall, launches=launches,
+                              by_gate=by_gate, rmse=rmse, n_key=n_key)
+    finally:
+        shutil.rmtree(seq)
+    edges = [tuple(int(v) for v in line.split("(")[1].split(")")[0]
+                   .split(","))
+             for line in runs["A"]["log"].splitlines()
+             if line.strip().startswith("new connection:")]
+    spans = [j - i for i, j in edges]
+    for name, r in runs.items():
+        label = "with loop closure" if name == "A" else "--no_loop_closure"
+        print(f"[loop] run {name} ({label}): frames {n_frames}, keyframes "
+              f"{r['n_key']}, rotation RMSE {r['rmse']:.4f} deg, "
+              f"match_best2 launches {r['launches']}, by gate "
+              f"{json.dumps(r['by_gate'])}  ({card})")
+        _stage_lines(f"loop {name}", r["log"], card)
+        print(f"[loop] run {name}: {n_frames / r['wall']:.3f} frames/s end "
+              f"to end ({r['wall']:.1f} s)  ({card})")
+    totals = _stage_totals(runs["A"]["log"])
+    share = totals.get("loop_closure", 0.0) / totals["frame_processing"]
+    hist = dict(sorted(collections.Counter(spans).items()))
+    print(f"[loop] loop edges {len(edges)}, edges by view span {hist}; "
+          f"loop_closure share of frame_processing in run A {share:.4f}  "
+          f"({card})")
+    ra, rb = runs["A"]["rmse"], runs["B"]["rmse"]
+    print(f"[loop] payoff RMSE_B / RMSE_A = {rb / ra:.3f} (bound "
+          f"{LOOP_PAYOFF})  ({card})")
+    if not spans or max(spans) <= LOOP_MIN_SPAN:
+        raise SmokeError(f"run A made no loop edge spanning more than "
+                         f"{LOOP_MIN_SPAN} views (spans {spans})")
+    for gate in ("node", "epipolar"):
+        if runs["A"]["by_gate"][gate] <= 0:
+            raise SmokeError(f"run A never launched match_best2 under the "
+                             f"{gate!r} gate")
+    if not (np.isfinite(ra) and np.isfinite(rb)
+            and LOOP_PAYOFF * ra < rb):
+        raise SmokeError(f"loop-closure payoff below {LOOP_PAYOFF}x: RMSE "
+                         f"{ra} deg with against {rb} deg without")
+    return {name: (r["launches"], r["by_gate"]) for name, r in runs.items()}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--frames", type=int, default=300,
-                    help="frames in the one-lap synthetic sequence "
-                         "(default 300)")
     ap.add_argument("--out", default=os.path.join(HERE, "smoke_out"),
                     help="scratch directory for the sequence and outputs")
     args = ap.parse_args(argv)
@@ -435,11 +594,15 @@ def main(argv=None) -> int:
         card = phase_device()
         phase_build(card)
         kern = phase_kernels(card)
-        launches = phase_main_path(card, args.frames, args.out)
+        main_launches, main_by_gate = phase_main_path(card, args.out)
+        loop = phase_loop_closure(card, os.path.join(args.out, "loop"))
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    kern["launches"] = launches["match_best2"]
+    kern["launches"] = main_launches + sum(n for n, _ in loop.values())
+    kern["launches_by_gate"] = {
+        "phase3": main_by_gate, "phase4_loop_closure": loop["A"][1],
+        "phase4_no_loop_closure": loop["B"][1]}
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

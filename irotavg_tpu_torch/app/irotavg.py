@@ -2,22 +2,28 @@
 ``irotavg_tpu/app/irotavg.py``, the reference ``irotavg`` binary,
 src/IRotAvg.cpp:132-398).
 
-    python -m irotavg_tpu_torch.app.irotavg none CONFIG SEQUENCE_PATH
+    python -m irotavg_tpu_torch.app.irotavg VOCAB CONFIG SEQUENCE_PATH
         [--image_ext .png] [--timestamp_offset 0] [--gt FILE]
         [--max_frames N] [--out_dir DIR] [--no_loop_closure]
         [--prefetch 0|1]
 
-Per frame: Frame creation (extract + undistort) -> ViewGraph.process_frame
-(skip if not a keyframe) -> optional GT ``fix_pose`` every 20 ids ->
-rot_avg(10), or a whole-graph solve after a GT correction -> per-frame
-timing line.  Outputs ``rotavg_poses.txt`` and ``rotavg_poses_ids.txt``
-as the reference writes them.
+``VOCAB`` is a DBoW2 text vocabulary (ORB-SLAM's ``ORBvoc.txt`` format),
+or ``none`` to run without place recognition.
 
-Limits of this port (see ROADMAP.md): ``VOCAB`` must be ``none`` (place
-recognition and loop closure are not ported yet); ``--checkpoint``,
-``--resume``, ``--plot_matches`` and ``--trace_dir`` are not ported;
-frames are extracted one at a time (``--prefetch`` accepts 0 or 1 — the
-reference's batched look-ahead leaves every engine decision unchanged).
+Per frame: Frame creation (extract + undistort + BoW) ->
+ViewGraph.process_frame (skip if not a keyframe) -> loop closure
+(candidates -> consistency -> BoW match + essential RANSAC + refine ->
+connect, min 150 inliers) -> optional GT ``fix_pose`` every 20 ids ->
+rot_avg(10), or a whole-graph solve after a new loop connection or a GT
+correction -> per-frame timing line.  Outputs ``rotavg_poses.txt`` and
+``rotavg_poses_ids.txt`` as the reference writes them.  The summary adds
+a ``loop_closure`` stage, the part of ``frame_processing`` spent in the
+loop-closure block.
+
+Limits of this port (see ROADMAP.md): ``--checkpoint``, ``--resume``,
+``--plot_matches`` and ``--trace_dir`` are not ported; frames are
+extracted one at a time (``--prefetch`` accepts 0 or 1 — the reference's
+batched look-ahead leaves every engine decision unchanged).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Incremental rotation averaging over an image sequence",
     )
     p.add_argument("orb_vocabulary",
-                   help="ORB vocabulary; only 'none' is supported here")
+                   help="ORB vocabulary (text format), or 'none'")
     p.add_argument("config", help="ORB-SLAM-compatible YAML settings")
     p.add_argument("sequence_path", help="path to images")
     p.add_argument("--image_ext", default=".png")
@@ -55,9 +61,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(args) -> str | None:
-    if args.orb_vocabulary.lower() not in ("none", "-", ""):
-        return ("VOCAB must be 'none': place recognition and loop closure "
-                "are not yet ported to irotavg_tpu_torch")
     for flag in NOT_PORTED:
         if getattr(args, flag[2:]) not in (None, False):
             return f"{flag} is not yet ported to irotavg_tpu_torch"
@@ -83,12 +86,18 @@ def main(argv=None) -> int:
     from irotavg_tpu_torch.frontend.camera import Camera
     from irotavg_tpu_torch.frontend.frame import Frame
     from irotavg_tpu_torch.frontend.orb import ORBExtractor
+    from irotavg_tpu_torch.placerec.vocabulary import Vocabulary
     from irotavg_tpu_torch.utils.sequence import SequenceLoader, load_gray
     from irotavg_tpu_torch.utils.timing import StageTimer
 
     cfg = PipelineConfig()
     cam_cfg, orb_cfg = load_settings(args.config)
     device = pick_device()
+
+    vocab = None
+    if args.orb_vocabulary.lower() not in ("none", "-", ""):
+        print("loading vocabulary...")
+        vocab = Vocabulary.load_text(args.orb_vocabulary, device=device)
 
     gt_rots = None
     if args.gt is not None:
@@ -118,6 +127,9 @@ def main(argv=None) -> int:
           f"{cam_cfg.p2}]")
     print(f"device: {device}")
 
+    detect_loop_closure = cfg.loop.enabled and not args.no_loop_closure \
+        and vocab is not None
+
     timer = StageTimer()
     os.makedirs(args.out_dir, exist_ok=True)
     poses_path = os.path.join(args.out_dir, "rotavg_poses.txt")
@@ -142,7 +154,8 @@ def main(argv=None) -> int:
         if args.max_frames is not None and frame_id >= args.max_frames:
             break
         with timer.stage("frame_creation"):
-            frame = Frame(frame_id, load_gray(impath), extractor, camera)
+            frame = Frame(frame_id, load_gray(impath), extractor, camera,
+                          vocab=vocab)
             sync()
         with timer.stage("frame_processing"):
             try:
@@ -158,6 +171,13 @@ def main(argv=None) -> int:
             selected_frames.append(count1)
             view_id = vg.num_views - 1
 
+            loop_new_connections = False
+            if detect_loop_closure:
+                with timer.stage("loop_closure"):
+                    loop_new_connections = _loop_closure(
+                        vg, view_id, cfg.loop.min_matches)
+                    sync()
+
         with timer.stage("rotavg"):
             add_correction = (gt_rots is not None
                               and frame_id % cfg.gt_fix_every == 0)
@@ -167,7 +187,8 @@ def main(argv=None) -> int:
                     q = so3.rotmat_to_quat(torch.from_numpy(gt_rots[gi]))
                     vg.fix_pose(view_id, q.numpy())
                     print(f"Fixing pose for view id {frame_id}")
-            vg.rot_avg(cfg.global_win_size if add_correction
+            vg.rot_avg(cfg.global_win_size
+                       if loop_new_connections or add_correction
                        else cfg.rotavg_win_size)
             sync()
 
@@ -183,6 +204,23 @@ def main(argv=None) -> int:
         print(f"{name}: total {s['total_s']:.3f}s over {s['count']} "
               f"frames (mean {s['mean_s'] * 1e3:.1f} ms)")
     return 0
+
+
+def _loop_closure(vg, view_id: int, min_matches: int) -> bool:
+    """The loop-closure block (src/IRotAvg.cpp:295-353): candidates ->
+    consistency -> verify and connect each -> add the view to the
+    database.  True when a new loop connection was made."""
+    candidates = vg.detect_loop_candidates(view_id)
+    consistent = vg.check_loop_consistency(candidates) if candidates else []
+    if consistent:
+        print(" * * * loop closure detected * * *\n")
+    new = False
+    for cand in consistent:
+        if vg.close_loop(view_id, cand, min_matches=min_matches):
+            print(f"   new connection: ( {cand}, {view_id} )")
+            new = True
+    vg.add_to_database(view_id)
+    return new
 
 
 def _save_ids(path: str, selected: list[int]) -> None:

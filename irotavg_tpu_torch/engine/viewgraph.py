@@ -1,17 +1,21 @@
-"""The SLAM view-graph engine: frame ingestion, connection, rotation
-averaging.
+"""The SLAM view-graph engine: frame ingestion, connection, loop closure,
+rotation averaging.
 
 Port of ``irotavg_tpu/engine/viewgraph.py`` (orchestration of
-``ViewGraph``, src/ViewGraph.cpp): ``process_frame`` runs the adaptive
-initial pose against the previous keyframe with the 5 px keyframe gate,
-the epipolar refinement, a hard failure when the frame cannot be
-connected with ``min_matches``, then the pivot-chained connections back
-through the view window (stopping at the first failure).  ``rot_avg``
-delegates to the incremental windowed solver.
+``ViewGraph``, src/ViewGraph.cpp):
 
-Not ported yet (ROADMAP.md): place recognition and loop closure
-(``detect_loop_candidates``, ``check_loop_consistency``, ``close_loop``,
-``add_to_database``) and ``save_view_graph``.
+* ``process_frame`` runs the adaptive initial pose against the previous
+  keyframe with the 5 px keyframe gate, the epipolar refinement, a hard
+  failure when the frame cannot be connected with ``min_matches``, then
+  the pivot-chained connections back through the view window (stopping
+  at the first failure).  When the current, previous and every window
+  frame carry vocabulary node ids, the re-matching uses the ``epipolar``
+  gate (same node required).
+* loop closure: min-BoW-score floor over the connected views
+  (:906-944), the database cascade (``ViewDatabase``), consecutive-group
+  consistency (:948-1033, threshold 7), and ``close_loop``'s BoW match +
+  RANSAC + refine.
+* ``rot_avg`` delegates to the incremental windowed solver.
 """
 
 from __future__ import annotations
@@ -24,9 +28,13 @@ import torch
 from irotavg_tpu_torch import so3
 from irotavg_tpu_torch.device import make_generator
 from irotavg_tpu_torch.engine.incremental import IncrementalRotAvg
-from irotavg_tpu_torch.geometry.fused import fused_process_frame
+from irotavg_tpu_torch.geometry.fused import (
+    fused_bow_pair_estimate, fused_process_frame,
+)
 from irotavg_tpu_torch.geometry.twoview import RelativePose
 from irotavg_tpu_torch.matching.matchers import matches_to_pairs
+from irotavg_tpu_torch.placerec.bow import bow_score
+from irotavg_tpu_torch.placerec.database import ViewDatabase
 
 
 class FrameConnectionError(RuntimeError):
@@ -47,9 +55,11 @@ def _rel(R, t, E, n, n_pairs) -> RelativePose:
 
 
 class ViewGraph:
-    """Incremental monocular rotation-averaging SLAM engine (no place
-    recognition).  Feature work runs on the frames' device; the solver on
-    ``device`` (defaults to the same)."""
+    """Incremental monocular rotation-averaging SLAM engine.  Feature work
+    runs on the frames' device; the solver on ``device`` (defaults to the
+    same)."""
+
+    COVISIBILITY_CONSISTENCY_TH = 7  # src/ViewGraph.hpp:99
 
     def __init__(self, camera, *, min_matches: int = 100, device=None):
         self.camera = camera
@@ -59,6 +69,8 @@ class ViewGraph:
         self.adjacency: dict[int, dict[int, int]] = {}
         self.ra = IncrementalRotAvg(device=device)
         self.local_rad = 45.0             # src/ViewGraph.hpp:134
+        self.db = ViewDatabase()
+        self._consistent_groups: list[tuple[set, int]] = []
         self._consts_dev = None
 
     def _consts(self, device) -> dict:
@@ -94,6 +106,9 @@ class ViewGraph:
         self.adjacency.setdefault(j, {})[i] = len(pairs)
         self.ra.add_edge(i, j, rel.q)
 
+    def is_connected(self, i: int, j: int) -> bool:
+        return (min(i, j), max(i, j)) in self.connections
+
     def best_covisibility(self, i: int, n: int) -> list[int]:
         """Top-n neighbours by match count (View::getBestCovisibilityViews)."""
         nb = self.adjacency.get(i, {})
@@ -102,7 +117,12 @@ class ViewGraph:
     # -- frame ingestion -----------------------------------------------------
 
     @staticmethod
-    def _tensors(f, nodes):
+    def _tensors(f, has_nodes: bool):
+        """Frame tensors ``(desc, nodes, valid, angle, x, y, octave)``;
+        ``nodes`` are the frame's vocabulary node ids with ``has_nodes``,
+        else zeros."""
+        nodes = f.dev("feat_nodes") if has_nodes else torch.zeros(
+            f.capacity, dtype=torch.int32, device=f.device)
         return (f.dev("desc"), nodes, f.dev("valid"), f.dev("angle"),
                 f.dev("xu"), f.dev("yu"), f.dev("octave"))
 
@@ -122,7 +142,6 @@ class ViewGraph:
             raise ValueError("mixed frame capacities")
         dev = frame.device
         c = self._consts(dev)
-        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
 
         # window candidates, padded to K = win_size - 1 (padded slots
         # repeat candidate 0 and are inactive)
@@ -149,15 +168,19 @@ class ViewGraph:
             p = conn.pairs if key[0] == v1 else conn.pairs[:, ::-1]
             m12_w2p[ki, p[:, 0]] = p[:, 1]
             active[ki] = len(p) > 0
+        # node ids only when every frame involved has them
+        # (irotavg_tpu/engine/viewgraph.py:161-166)
+        has_nodes = all(f.feat_nodes is not None for f in [frame, prev] + fr)
         fw = tuple(torch.stack(a) for a in
-                   zip(*[self._tensors(f, zeros) for f in fr]))
+                   zip(*[self._tensors(f, has_nodes) for f in fr]))
 
         local_rad, rel_valid, refined, window = fused_process_frame(
-            self._tensors(frame, zeros), self._tensors(prev, zeros), fw,
+            self._tensors(frame, has_nodes), self._tensors(prev, has_nodes),
+            fw,
             torch.as_tensor(m12_w2p, device=dev), active, self.local_rad,
             c["K_inv"], c["sigma2"], c["cam"], c["th_norm"],
             make_generator(self.num_views, dev), self.min_matches,
-            2 * self.min_matches, 0.9)
+            2 * self.min_matches, 0.9, has_nodes)
         self.local_rad = float(local_rad)
         if self.local_rad < 5.0:
             return False                       # keyframe gate (:1071-1074)
@@ -189,6 +212,76 @@ class ViewGraph:
                          _rel(R_w[ki], t_w[ki], E_w[ki], n_w[ki],
                               len(pairs_w)))
         return True
+
+    # -- loop closure --------------------------------------------------------
+
+    def detect_loop_candidates(self, view_id: int) -> list[int]:
+        """Min-score floor over connected views, then the database cascade
+        (src/ViewGraph.cpp:906-944)."""
+        frame = self.frames[view_id]
+        if frame.bow is None:
+            return []
+        min_score = 1.0
+        for nb in self.adjacency.get(view_id, {}):
+            nb_bow = self.frames[nb].bow
+            if nb_bow is not None:
+                min_score = min(min_score, bow_score(frame.bow, nb_bow))
+        return self.db.detect_loop_candidates(
+            query_id=view_id, bow=frame.bow,
+            connected=set(self.adjacency.get(view_id, {})),
+            min_score=min_score, covisibility_fn=self.best_covisibility,
+            score_fn=bow_score)
+
+    def check_loop_consistency(self, candidates: list[int]) -> list[int]:
+        """Consecutive-keyframe group consistency (:948-1033)."""
+        consistent: list[int] = []
+        new_groups: list[tuple[set, int]] = []
+        prev_flag = [False] * len(self._consistent_groups)
+        for cand in candidates:
+            group = set(self.adjacency.get(cand, {})) | {cand}
+            some = False
+            enough = False
+            for g, (pg, cnt) in enumerate(self._consistent_groups):
+                if group & pg:
+                    some = True
+                    cur = cnt + 1
+                    if not prev_flag[g]:
+                        new_groups.append((group, cur))
+                        prev_flag[g] = True
+                    if cur >= self.COVISIBILITY_CONSISTENCY_TH and not enough:
+                        consistent.append(cand)
+                        enough = True
+            if not some:
+                new_groups.append((group, 0))
+        self._consistent_groups = new_groups
+        return consistent
+
+    def close_loop(self, view_id: int, cand_id: int, *,
+                   min_matches: int = 150) -> bool:
+        """BoW match + relative pose + refine, then connect ``(cand_id,
+        view_id)`` (the app's loop-closure block, src/IRotAvg.cpp:309-347).
+        Reads back only the success flag, then the accepted edge."""
+        f2 = self.frames[view_id]
+        f1 = self.frames[cand_id]
+        dev = f2.device
+        c = self._consts(dev)
+        has_nodes = f1.feat_nodes is not None and f2.feat_nodes is not None
+        E, R, t, n_che, m12, success = fused_bow_pair_estimate(
+            self._tensors(f1, has_nodes), self._tensors(f2, has_nodes),
+            c["K_inv"], c["sigma2"], c["cam"], c["th_norm"],
+            make_generator((view_id * 31 + cand_id) & 0xFFFFFFFF, dev),
+            0.9, min_matches, has_nodes)
+        if not success:
+            return False
+        pairs = matches_to_pairs(m12.cpu().numpy())
+        self.connect(cand_id, view_id, pairs,
+                     _rel(R.cpu(), t.cpu(), E.cpu(), n_che, len(pairs)))
+        return True
+
+    def add_to_database(self, view_id: int) -> None:
+        bow = self.frames[view_id].bow
+        if bow is not None:
+            self.db.add(view_id, bow)
 
     # -- solver bridge / persistence ----------------------------------------
 

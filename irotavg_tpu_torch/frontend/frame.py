@@ -1,8 +1,9 @@
 """Frame — per-image feature bundle of fixed-capacity tensors + mask.
 
 Port of ``irotavg_tpu/frontend/frame.py`` (constructor path).  The
-reference's ctor pipeline (extract -> undistort; src/Frame.hpp:54-64)
-runs as: extractor call -> (host) undistortion when k1 != 0.  Feature
+reference's ctor pipeline (extract -> undistort -> BoW;
+src/Frame.hpp:54-64) runs as: extractor call -> (host) undistortion when
+k1 != 0 -> vocabulary transform when a vocabulary is given.  Feature
 tensors live on the extractor's device, where the matchers and geometry
 read them; host (numpy) mirrors are fetched together, lazily, the first
 time host code reads any of them.  There is no ±1 descriptor expansion:
@@ -11,6 +12,7 @@ the matcher kernel reads the (N, 8) int32 words.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from irotavg_tpu_torch.frontend.camera import Camera
@@ -27,23 +29,31 @@ class Frame:
     host mirror of the device tensor :meth:`dev` returns: ``x, y`` level-0
     keypoint coords; ``xu, yu`` undistorted coords; ``octave``; ``angle``
     (radians); ``response``; ``size``; ``desc`` (N, 8) int32 words;
-    ``valid``.
+    ``valid``.  ``bow`` (word id -> weight dict) and ``feat_nodes`` ((N,)
+    int32 host array of vocabulary node ids, also on the device as
+    ``dev("feat_nodes")``) are filled by :meth:`compute_bow`, else None.
     """
 
-    def __init__(self, frame_id: int, image, extractor, camera: Camera):
+    def __init__(self, frame_id: int, image, extractor, camera: Camera,
+                 vocab=None):
         self.id = frame_id
         self.camera = camera
         self._attach(extractor(image), camera)
+        if vocab is not None:
+            self.compute_bow(vocab)
 
     @classmethod
-    def from_tensors(cls, frame_id: int, out: dict,
-                     camera: Camera) -> "Frame":
+    def from_tensors(cls, frame_id: int, out: dict, camera: Camera,
+                     bow_nid=None) -> "Frame":
         """A Frame from an extractor-style dict of tensors (``x0, y0`` or
-        ``x, y``, optionally ``xu, yu``)."""
+        ``x, y``, optionally ``xu, yu``); ``bow_nid`` is an optional
+        precomputed ``(bow, feat_nodes)``."""
         self = cls.__new__(cls)
         self.id = frame_id
         self.camera = camera
         self._attach(out, camera)
+        if bow_nid is not None:
+            self._set_bow(*bow_nid)
         return self
 
     def _attach(self, out: dict, camera: Camera) -> None:
@@ -98,3 +108,15 @@ class Frame:
     def dev(self, name: str):
         """Device tensor of a feature array."""
         return self._device[name]
+
+    def compute_bow(self, vocab, levelsup: int = 4) -> None:
+        """Vocabulary transform (src/Frame.cpp:263-274,
+        ORB_VOCAB_LEVELS=4)."""
+        self._set_bow(*vocab.transform(self.dev("desc"), self.dev("valid"),
+                                       levelsup=levelsup))
+
+    def _set_bow(self, bow: dict, feat_nodes) -> None:
+        self.bow = bow
+        self.feat_nodes = np.asarray(feat_nodes, np.int32)
+        self._device["feat_nodes"] = torch.as_tensor(self.feat_nodes,
+                                                     device=self.device)

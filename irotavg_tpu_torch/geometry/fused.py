@@ -8,8 +8,11 @@ Python loop over device tensors that reads a few scalars back per
 iteration, with the same stopping rules: ``stall >= 2`` and
 ``MAX_ITERS`` for the refine, ``MAX_TRIALS`` with the search radius
 x1.25 per retry for the initial pose, and the ``GATE_PX`` keyframe gate.
-Without a vocabulary the node arrays are zeros and the epipolar gate is
-``epipolar_nonode``.
+With ``has_nodes`` (every frame involved carries vocabulary node ids) the
+epipolar re-match also requires the same node (gate ``epipolar``);
+without a vocabulary the node arrays are zeros and the gate is
+``epipolar_nonode``.  `fused_bow_pair_estimate` is the loop-closure
+verification (BoW match, RANSAC, refine).
 
 Matches travel as assignment vectors ``m12 (N1,)`` (row -> column or -1).
 The reference's ``vmap`` over the K window candidates is a batch axis
@@ -28,7 +31,7 @@ from irotavg_tpu_torch.geometry.essential import (
     ransac_essential, recover_pose,
 )
 from irotavg_tpu_torch.matching.matchers import (
-    _match_epipolar_core, _match_locally_core,
+    _match_by_bow_core, _match_epipolar_core, _match_locally_core,
 )
 
 N_SAMPLES = 512        # minimal 8-point samples per RANSAC
@@ -70,7 +73,7 @@ def _flip_assignment(m12_cp, n_prev):
 
 
 def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
-                 th_norm, gen, min_pairs):
+                 th_norm, gen, min_pairs, has_nodes=False):
     """`refinePose` over a batch of B row frames against one column frame.
 
     ``f1`` holds row-frame tensors with a leading batch axis
@@ -80,7 +83,9 @@ def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
     model while the cheirality count strictly grows; a lane stops when
     the rematch is too small (< ``min_pairs``, <= 4), recovery gives <= 6
     inliers, or after two re-solves without improvement.  Stopped lanes
-    are frozen.  Returns (E, R, t, best_n, best_m12, iters) per lane.
+    are frozen.  ``has_nodes`` selects the ``epipolar`` gate (same
+    vocabulary node required) over ``epipolar_nonode``.  Returns (E, R,
+    t, best_n, best_m12, iters) per lane.
     """
     desc1, nodes1, valid1, angle1, x1, y1, oct1 = f1
     desc2, nodes2, valid2, angle2, x2, y2 = f2
@@ -100,7 +105,7 @@ def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
         m12 = _match_epipolar_core(
             desc1[sel], nodes1[sel], valid1[sel], angle1[sel], x1[sel],
             y1[sel], oct1[sel], desc2, nodes2, valid2, angle2, x2, y2,
-            F, sigma2, has_nodes=False)
+            F, sigma2, has_nodes=has_nodes)
         counts = (m12 >= 0).sum(dim=1).tolist()
         for k, b in enumerate(lanes):
             # fresh hypotheses every re-solve (no model seeding): a seeded
@@ -183,7 +188,7 @@ def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, gen, min_inliers,
 
 
 def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
-                         th_norm, gen, min_matches):
+                         th_norm, gen, min_matches, has_nodes=False):
     """The window walk's per-older-view RANSAC + refinement, batched over
     the K candidates (leading axis of ``fw`` and ``m12_0``; ``active`` a
     host list of bools).  Returns (E, R, t, n_che, m12, success) with
@@ -218,7 +223,7 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
         Er, Rr, tr, nr, m12r, _ = fused_refine(
             tuple(a[sel] for a in fw), f2, E[sel], R[sel], t[sel], cnt,
             m12[sel], K_inv, sigma2, cam, th_norm, gen,
-            math.ceil(0.75 * min_matches))
+            math.ceil(0.75 * min_matches), has_nodes)
         E[sel], R[sel], t[sel], n[sel], m12[sel] = Er, Rr, tr, nr, m12r
     final = (m12 >= 0).sum(dim=1).tolist()
     success = [rel_ok[k] and final[k] >= min_matches for k in range(K)]
@@ -227,7 +232,7 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
 
 def fused_process_frame(fc, fp, fw, m12_w2p, active_w, local_rad0, K_inv,
                         sigma2, cam, th_norm, gen, min_matches, min_inliers,
-                        nnratio):
+                        nnratio, has_nodes=False):
     """The whole per-frame pipeline: adaptive initial pose, the 5 px
     keyframe gate, and for accepted frames the epipolar refine of the
     initial pose plus the pivot-chained window walk
@@ -256,7 +261,7 @@ def fused_process_frame(fc, fp, fw, m12_w2p, active_w, local_rad0, K_inv,
     Er, Rr, tr, nr, m12_pc, _ = fused_refine(
         tuple(a[None] for a in fp), fc[:6], E0[None], R0[None], t0[None],
         cnt0[None], m12_pc0[None], K_inv, sigma2, cam, th_norm, gen,
-        min_pairs)
+        min_pairs, has_nodes)
     refined = (Er[0], Rr[0], tr[0], nr[0], m12_pc[0])
 
     # pivot chaining: candidate row -> pivot row -> current column
@@ -267,5 +272,43 @@ def fused_process_frame(fc, fp, fw, m12_w2p, active_w, local_rad0, K_inv,
     active = [bool(a) and c > 5 for a, c in zip(active_w, n_chain)]
     window = fused_window_connect(
         fw, m12_w2c, active, fc[:6], K_inv, sigma2, cam, th_norm, gen,
-        min_matches)
+        min_matches, has_nodes)
     return local_rad, rel_valid, refined, window
+
+
+def fused_bow_pair_estimate(f1, f2, K_inv, sigma2, cam, th_norm, gen,
+                            nnratio, min_matches, has_nodes):
+    """Loop-closure verification (the app's loop-closure block,
+    src/IRotAvg.cpp:309-347): BoW-guided matching (gate ``node``, or
+    ``none`` without nodes) -> essential RANSAC + cheirality -> epipolar
+    refine.
+
+    ``f1`` / ``f2`` are the candidate and current frame tensors ``(desc,
+    nodes, valid, angle, x, y, octave)``.  Rejected unless more than 4
+    matches, more than 6 cheirality inliers and at least ``min_matches``
+    of them (:320-326); the refine (rematch floor ``ceil(0.75 *
+    min_matches)``) runs when the RANSAC passed and more than 10 matches
+    survive it; ``success`` when the final count still reaches
+    ``min_matches``.  Returns (E, R, t, n_che, m12, success) with the
+    pose mapping frame 1 -> frame 2 and ``m12`` frame-1 rows -> frame-2
+    columns.
+    """
+    desc1, nodes1, valid1, angle1, x1, y1, oct1 = f1
+    desc2, nodes2, valid2, angle2, x2, y2 = f2[:6]
+    m12 = _match_by_bow_core(desc1, nodes1, valid1, angle1, desc2, nodes2,
+                             valid2, angle2, nnratio, has_nodes=has_nodes)
+    count0 = int((m12 >= 0).sum())
+    E, R, t, n, pose_mask = _ransac_from_assignment(
+        m12, x1, y1, x2, y2, cam, th_norm, gen)
+    n = int(n)
+    rel_ok = count0 > 4 and n > 6 and n >= min_matches
+    m12 = torch.where(pose_mask, m12, torch.full_like(m12, -1))
+    cntf = (m12 >= 0).sum()
+    if rel_ok and int(cntf) > 10:
+        Er, Rr, tr, nr, m12r, _ = fused_refine(
+            tuple(a[None] for a in f1), f2[:6], E[None], R[None], t[None],
+            cntf[None], m12[None], K_inv, sigma2, cam, th_norm, gen,
+            math.ceil(0.75 * min_matches), has_nodes)
+        E, R, t, n, m12 = Er[0], Rr[0], tr[0], int(nr[0]), m12r[0]
+    success = rel_ok and int((m12 >= 0).sum()) >= min_matches
+    return E, R, t, n, m12, success

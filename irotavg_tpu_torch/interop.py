@@ -23,10 +23,12 @@ _DTYPES = {"x": torch.float32, "y": torch.float32, "xu": torch.float32,
            "size": torch.float32, "valid": torch.bool}
 
 
-def frame_from_arrays(d: dict, camera, device=None):
+def frame_from_arrays(d: dict, camera, device=None, bow=None,
+                      feat_nodes=None):
     """A port ``Frame`` from a reference Frame's host arrays (the fields
     ``x y xu yu octave angle response size desc valid``; ``desc`` as
-    (N, 8) uint32 words, carried as int32 bit patterns)."""
+    (N, 8) uint32 words, carried as int32 bit patterns), with the
+    reference's ``bow`` dict and ``feat_nodes`` when given."""
     from irotavg_tpu_torch.frontend.frame import Frame
 
     dev = pick_device(device)
@@ -34,7 +36,21 @@ def frame_from_arrays(d: dict, camera, device=None):
            for k in FRAME_FIELDS if k != "desc"}
     desc = np.ascontiguousarray(np.asarray(d["desc"]).astype(np.uint32))
     out["desc"] = torch.from_numpy(desc.view(np.int32).copy()).to(dev)
-    return Frame.from_tensors(0, out, camera)
+    bow_nid = None if feat_nodes is None else (dict(bow or {}), feat_nodes)
+    return Frame.from_tensors(0, out, camera, bow_nid=bow_nid)
+
+
+def vocabulary_from_arrays(k, L, children, node_desc, weight, word_id,
+                           is_leaf, scoring="L1", weighting="TF_IDF",
+                           device=None):
+    """A port ``Vocabulary`` from a reference Vocabulary's host arrays
+    (``node_desc`` as (n_nodes, 8) uint32 words)."""
+    from irotavg_tpu_torch.placerec.vocabulary import Vocabulary
+
+    return Vocabulary(k, L, np.array(children), np.array(node_desc),
+                      np.array(weight), np.array(word_id),
+                      np.array(is_leaf), scoring=scoring,
+                      weighting=weighting, device=device)
 
 
 def incremental_from_arrays(Q, fixed, edges, QQ, device=None):

@@ -16,7 +16,9 @@ transposed, unlike the reference's ``make_colft``).  Every function takes
 an optional leading batch axis ``B``.
 
 :func:`best2` dispatches on the device of its tensors only: CPU tensors
-go to :func:`best2_plain`, CUDA tensors launch the kernel or raise.
+go to :func:`best2_plain`, CUDA tensors launch the kernel or raise.  Each
+launch adds one to ``best2.launches`` and to ``best2.launches_by_gate``
+under its gate.
 """
 
 from __future__ import annotations
@@ -166,10 +168,18 @@ def best2(desc1, desc2, rowf, colf, gate: str):
     if err != 0:
         raise RuntimeError(f"match_best2 launch failed: CUDA error {err}")
     best2.launches += 1
+    best2.launches_by_gate[gate] += 1
     if squeeze:
         return d1[0], d2[0], idx[0]
     return d1, d2, idx
 
 
-# kernel launches made by best2 (read and reset by chip_smoke.py)
-best2.launches = 0
+def reset_launch_counts() -> None:
+    """Zero the kernel launch counters of :func:`best2`."""
+    best2.launches = 0
+    best2.launches_by_gate = dict.fromkeys(GATES, 0)
+
+
+# kernel launches made by best2, in total and per gate (read and reset by
+# chip_smoke.py)
+reset_launch_counts()

@@ -1,0 +1,9 @@
+"""L3b — place recognition: a DBoW2-compatible vocabulary with a batched
+tree descent on the frames' device, sparse BoW vectors, the six DBoW2
+scorers, and an inverted-file database with the reference's
+loop-candidate cascade (port of ``irotavg_tpu/placerec``; vocabulary
+training stays in the JAX package)."""
+
+from irotavg_tpu_torch.placerec.bow import bow_score  # noqa: F401
+from irotavg_tpu_torch.placerec.database import ViewDatabase  # noqa: F401
+from irotavg_tpu_torch.placerec.vocabulary import Vocabulary  # noqa: F401

@@ -1,6 +1,6 @@
 """The port's ``irotavg`` CLI, in-process, on PGM frames: the output
-contract of test_app.py:147-155, the not-ported options, and the
-matcher's CPU dispatch."""
+contract of test_app.py:147-155 without and with a vocabulary, the
+not-ported options, and the matcher's CPU dispatch."""
 
 import numpy as np
 import pytest
@@ -22,8 +22,8 @@ def sequence():
                          yaw_deg_per_frame=-1.0)
 
 
-def test_cli_output_contract(tmp_path, sequence):
-    """The port's CLI on 6 PGM frames (the contract of test_app.py:147-155)."""
+def _write_inputs(tmp_path, sequence):
+    """PGM frames, a GT file and an ORB-SLAM YAML in ``tmp_path``."""
     frames, K, R_gt = sequence
     seq = tmp_path / "seq"
     seq.mkdir()
@@ -40,11 +40,10 @@ def test_cli_output_contract(tmp_path, sequence):
         "ORBextractor.nFeatures: 1200\nORBextractor.scaleFactor: 1.2\n"
         "ORBextractor.nLevels: 8\nORBextractor.iniThFAST: 20\n"
         "ORBextractor.minThFAST: 7\n")
-    out = tmp_path / "out"
-    rc = port_cli.main(["none", str(yaml), str(seq), "--image_ext", ".pgm",
-                        "--gt", str(tmp_path / "gt.txt"),
-                        "--out_dir", str(out)])
-    assert rc == 0
+    return seq, yaml
+
+
+def _check_outputs(out):
     poses = (out / "rotavg_poses.txt").read_text().strip().splitlines()
     ids = (out / "rotavg_poses_ids.txt").read_text().strip().splitlines()
     assert len(poses) >= 4 and len(ids) == len(poses)
@@ -55,8 +54,59 @@ def test_cli_output_contract(tmp_path, sequence):
     assert np.linalg.norm(q) == pytest.approx(1.0, abs=1e-6)
 
 
+def test_cli_output_contract(tmp_path, sequence):
+    """The port's CLI on 6 PGM frames (the contract of test_app.py:147-155)."""
+    seq, yaml = _write_inputs(tmp_path, sequence)
+    out = tmp_path / "out"
+    rc = port_cli.main(["none", str(yaml), str(seq), "--image_ext", ".pgm",
+                        "--gt", str(tmp_path / "gt.txt"),
+                        "--out_dir", str(out)])
+    assert rc == 0
+    _check_outputs(out)
+
+
+def test_cli_with_vocabulary(tmp_path, sequence, monkeypatch, capsys):
+    """With a vocabulary file written by the JAX ``save_text`` the CLI
+    runs the loop-closure block and every keyframe carries a BoW vector
+    and node ids."""
+    from irotavg_tpu.placerec import train_vocabulary
+    from irotavg_tpu_torch.engine.viewgraph import ViewGraph
+    from irotavg_tpu_torch.frontend.orb import ORBExtractor
+
+    ext = ORBExtractor(n_features=600, n_levels=8, device="cpu")
+    sample = []
+    for im in sequence[0][::3]:
+        o = ext(im)
+        d = o["desc"][o["valid"]].numpy()[:300]
+        sample.append(np.ascontiguousarray(d).view(np.uint32))
+    vocab = tmp_path / "vocab.txt"
+    train_vocabulary(sample, k=6, L=3, seed=0).save_text(str(vocab))
+    seq, yaml = _write_inputs(tmp_path, sequence)
+    kept = []
+    orig = ViewGraph.process_frame
+
+    def spy(self, frame, win_size=4):
+        ok = orig(self, frame, win_size)
+        kept.extend([frame] if ok else [])
+        return ok
+
+    monkeypatch.setattr(ViewGraph, "process_frame", spy)
+    out = tmp_path / "out"
+    rc = port_cli.main([str(vocab), str(yaml), str(seq), "--image_ext",
+                        ".pgm", "--out_dir", str(out)])
+    assert rc == 0
+    _check_outputs(out)
+    assert len(kept) >= 4
+    for f in kept:
+        assert f.bow and abs(sum(f.bow.values()) - 1.0) < 1e-9
+        assert f.feat_nodes.shape == (f.capacity,)
+        assert (f.feat_nodes >= 0).any()
+    log = capsys.readouterr().out
+    assert "loading vocabulary..." in log and "loop_closure: total" in log
+
+
 @pytest.mark.parametrize("argv", [
-    ["vocab.txt"], ["none", "--checkpoint"], ["none", "--resume", "x"],
+    ["none", "--checkpoint"], ["none", "--resume", "x"],
     ["none", "--plot_matches", "d"], ["none", "--trace_dir", "d"],
 ])
 def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys):
