@@ -9,24 +9,34 @@ prints no result line):
 0. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit (``nvidia-smi``) and the torch / CUDA versions.
 1. build — compiles every CUDA kernel of the main path from
-   ``irotavg_tpu_torch/csrc`` with nvcc and prints the build seconds.
-2. kernels — each kernel against its plain PyTorch version on the card at
-   the main path's shapes, required exactly equal; median times of both
-   over 20 runs (CUDA events).
+   ``irotavg_tpu_torch/csrc`` with nvcc and prints the build seconds and
+   ptxas's ``-v`` report (registers, shared memory, spills).
+2. kernels — each kernel against its plain PyTorch version on the card,
+   required exactly equal: at the main path's shapes under every gate,
+   and on adversarial cases (exact duplicate columns on both sides of
+   every column-split and tile boundary, rows with no and with one
+   passing column, N2 = split*tile +- 1, N1 under one row tile, shared
+   column frames at B=3; :func:`adversarial_match_cases`).  Times are
+   medians over 7 windows of 50 back-to-back launches between one CUDA
+   event pair (per launch; L2 warm, as for the real caller), beside the
+   bound (``ops/match.py:bound_ms``), the plain version's time and
+   ``library_ms``: one ``torch.matmul`` of the ±1 bf16 expansions, which
+   gives the distances only (no gate, no top-2) and is never called by
+   the port.
 3. main path — renders the first 150 frames of a one-lap synthetic
    KITTI-sized sequence (1241x376, KITTI 00 intrinsics, 300 frames a lap)
    with numpy, writes them as PGM with a GT file and an ORB-SLAM YAML
    (2000 features), runs the port's ``irotavg`` CLI on them with
-   ``VOCAB=none`` and GT pins every 20 frames, launch counters reset just
-   before, and checks the kernel counts, the output files and the
-   rotation RMSE against GT.
+   ``VOCAB=none``, ``--device cuda`` and GT pins every 20 frames, launch
+   counters reset just before, and checks the kernel counts, the output
+   files and the rotation RMSE against GT.
 4. loop closure — renders a one-way orbit of two laps (241 frames, the
    orbit shrinking by 1 m, so lap 2 revisits lap 1 from a slightly
-   different pose) at the same size, decompresses the repo's k=10, L=5 DBoW2 vocabulary
-   (``tests/data/product_vocab_k10_L5_v1.txt.gz``), times its parse and
-   the per-frame tree descent, and runs the CLI twice with no GT pins so
-   that drift accumulates: A with loop closure, B with
-   ``--no_loop_closure``.  Fails unless both runs succeed, A makes a loop
+   different pose) at the same size, decompresses the repo's k=10, L=5
+   DBoW2 vocabulary (``tests/data/product_vocab_k10_L5_v1.txt.gz``), times
+   its parse and the per-frame tree descent, and runs the CLI twice
+   (``--device cuda``) with no GT pins so that drift accumulates: A with
+   loop closure, B with ``--no_loop_closure``.  Fails unless both runs succeed, A makes a loop
    edge spanning more than 10 views, A launches the matcher under the
    ``node`` and ``epipolar`` gates, and 2 * RMSE_A < RMSE_B (the payoff
    tests/test_loop_payoff.py asserts for the reference).
@@ -131,6 +141,32 @@ def phase_build(card):
     build.load("match_best2")
     print(f"[build] match_best2: nvcc {build.build_seconds['match_best2']:.2f}"
           f" s, load {time.perf_counter() - t0:.2f} s  ({card})")
+    report = build.ptxas_report.get("match_best2")
+    if report is None:
+        print("[build] match_best2: library was already built; no ptxas "
+              "report")
+        return
+    for line in report.splitlines():
+        if line.strip():
+            print(f"[build] ptxas: {line.strip()}")
+
+
+def _time_ms(torch, fn, per_window=50, windows=7):
+    """Median over ``windows`` CUDA-event windows of ``per_window``
+    back-to-back calls of ``fn``, per call (ms)."""
+    fn()                                   # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per_window):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per_window)
+    return statistics.median(times)
 
 
 def _match_inputs(torch, B, n1, n2, gate, gen, dev):
@@ -181,8 +217,181 @@ def _match_inputs(torch, B, n1, n2, gate, gen, dev):
     return d1, d2, torch.stack(rows), torch.stack(cols)
 
 
+# -- adversarial matcher cases (numpy; tests/test_torch_match_ties.py runs
+# the same cases against the JAX reference on the CPU) -----------------------
+
+
+def column_boundaries(n2, split, tile):
+    """Columns at which the kernel starts a new column chunk (one block of
+    a cluster) or a new staged tile inside a chunk, for ``n2`` columns."""
+    chunk = -(-n2 // split)
+    out = set()
+    for r in range(split):
+        lo, hi = r * chunk, min(n2, (r + 1) * chunk)
+        out.update(range(lo, hi, tile))
+    return sorted(c for c in out if 0 < c < n2)
+
+
+def _bit_flips(rng, n_bits):
+    """(8,) uint32 words with ``n_bits`` distinct bits set."""
+    out = np.zeros(256, np.uint32)
+    out[rng.choice(256, n_bits, replace=False)] = 1
+    return (out.reshape(8, 32) << np.arange(32, dtype=np.uint32)).sum(
+        axis=1, dtype=np.uint32)
+
+
+def _adversarial_case(rng, gate, name, B, n1, n2, mode, split, tile):
+    """One case; see :func:`adversarial_match_cases`."""
+    f32 = np.float32
+    d1 = rng.integers(0, 2**32, (n1, 8), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (n2, 8), dtype=np.uint32)
+    nd1 = rng.integers(0, 12, n1).astype(f32)
+    x1 = rng.uniform(0, KITTI_W, n1).astype(f32)
+    y1 = rng.uniform(0, KITTI_H, n1).astype(f32)
+    o1 = rng.integers(0, 8, n1).astype(f32)
+    v1 = np.ones(n1, f32)
+    th = np.full(n1, 100.0 if gate == "local" else 0.0, f32)
+    if gate.startswith("epipolar"):
+        th = (3.84 * (1.2 ** o1) ** 2 * 40).astype(f32)
+
+    F = np.array([[0, 1e-4, -0.02], [-1e-4, 0, 0.03], [0.02, -0.03, 1]],
+                 f32)
+
+    def col_features(n):
+        x2 = rng.uniform(0, KITTI_W, n).astype(f32)
+        y2 = rng.uniform(0, KITTI_H, n).astype(f32)
+        return np.stack([
+            (rng.random(n) > 0.1).astype(f32),
+            rng.integers(0, 12, n).astype(f32), x2, y2,
+            rng.integers(0, 8, n).astype(f32),
+            x2 * F[0, 0] + y2 * F[1, 0] + F[2, 0],
+            x2 * F[0, 1] + y2 * F[1, 1] + F[2, 1],
+            x2 * F[0, 2] + y2 * F[1, 2] + F[2, 2]], axis=1).astype(f32)
+
+    cf = col_features(n2)
+    fixed = set()                       # columns whose features are planted
+
+    def plant(col, row):
+        """Column ``col`` passes row ``row`` under every gate."""
+        a = f32(rng.uniform(-0.01, 0.01))
+        cf[col] = [1.0, nd1[row], x1[row] + f32(rng.uniform(-20, 20)),
+                   y1[row] + f32(rng.uniform(-20, 20)), o1[row], a, 1.0,
+                   -(a * x1[row] + y1[row])]          # line through the row
+        fixed.add(col)
+
+    rows = iter(range(n1))
+    if mode == "one_col":
+        # every column invalid but one, a duplicate of row 0
+        cf[:, 0] = 0.0
+        col = n2 // 2
+        d2[col] = d1[next(rows)]
+        plant(col, 0)
+    else:
+        # exact duplicates on both sides of every boundary (adjacent
+        # boundaries share one run of copies), and distance-3 ties
+        # straddling each run
+        runs = []
+        for c in column_boundaries(n2, split, tile):
+            if runs and c <= runs[-1][1] + 1:
+                runs[-1][1] = c
+            else:
+                runs.append([c, c])
+        for lo, hi in runs:
+            r = next(rows)
+            for col in range(lo - 1, hi + 1):
+                d2[col] = d1[r]
+                plant(col, r)
+            left, right = lo - 2, hi + 1
+            if left >= 0 and right < n2 and not {left, right} & fixed:
+                r = next(rows)
+                d2[left] = d1[r] ^ _bit_flips(rng, 3)
+                d2[right] = d1[r] ^ _bit_flips(rng, 3)
+                plant(left, r)
+                plant(right, r)
+        free = [c for c in range(n2) if c not in fixed]
+        for k in range(4):
+            # a valid row that no column passes (except under "none")
+            r = next(rows)
+            nd1[r] = 1000 + k
+            x1[r] = -5000.0 - 1000.0 * k
+            th[r] = 0.0 if gate.startswith("epipolar") else th[r]
+            # a valid row that exactly one column passes (except "none")
+            r = next(rows)
+            col = free[(k * 37) % len(free)]
+            nd1[r] = 2000 + k
+            x1[r] = -100000.0 - 1000.0 * k
+            if gate.startswith("epipolar"):
+                th[r] = 1e-6
+            cf[col] = [1.0, nd1[r], x1[r], y1[r], o1[r], 0.0, 1.0, -y1[r]]
+            fixed.add(col)
+        for _ in range(3):
+            v1[next(rows)] = 0.0         # invalid rows
+    rowf = np.zeros((n1, 8), f32)
+    rowf[:, :6] = np.stack([v1, nd1, x1, y1, o1, th], axis=1)
+
+    # lanes: the rows permuted; the column frame shared ("both": words
+    # and features; "desc2": words only, features re-drawn per lane except
+    # the planted ones) or not (B = 1)
+    perms = [np.arange(n1)] + [rng.permutation(n1) for _ in range(B - 1)]
+    desc1 = np.stack([d1[p] for p in perms])
+    rowfs = np.stack([rowf[p] for p in perms])
+    if mode == "desc2":
+        colf = []
+        for _ in range(B):
+            lane = col_features(n2)
+            keep = sorted(fixed)
+            lane[keep] = cf[keep]
+            colf.append(lane)
+        colf = np.stack(colf)
+    elif mode == "both":
+        colf = cf
+    else:
+        colf = np.broadcast_to(cf, (B,) + cf.shape).copy()
+    desc2 = d2 if mode in ("both", "desc2") else \
+        np.broadcast_to(d2, (B,) + d2.shape).copy()
+    return {"name": name, "gate": gate, "desc1": desc1, "desc2": desc2,
+            "rowf": rowfs, "colf": colf}
+
+
+def adversarial_match_cases(seed=0):
+    """The matcher's adversarial cases for every gate, as numpy arrays:
+    ``desc1`` (B, N1, 8) uint32, ``desc2`` (B, N2, 8) or shared (N2, 8),
+    ``rowf`` (B, N1, 8) f32, ``colf`` (B, N2, 8) or shared (N2, 8).  The
+    split and tile sizes are the kernel's (``ops/match.py``)."""
+    from irotavg_tpu_torch.ops.match import (
+        COL_SPLIT, COL_TILE, GATES, ROWS_PER_BLOCK,
+    )
+
+    st = COL_SPLIT * COL_TILE
+    specs = (
+        (f"N2=split*tile+1={st + 1}", 1, ROWS_PER_BLOCK + 6, st + 1, None),
+        (f"N2=split*tile-1={st - 1}", 1, ROWS_PER_BLOCK + 6, st - 1, None),
+        ("N2=1100 (tiles in each chunk)", 1, 2 * ROWS_PER_BLOCK + 2, 1100,
+         None),
+        (f"N1=37<{ROWS_PER_BLOCK}", 1, 37, 300, None),
+        ("B=3, shared desc2 and colf", 3, ROWS_PER_BLOCK + 6, st + 1,
+         "both"),
+        ("B=3, shared desc2", 3, ROWS_PER_BLOCK + 6, st + 1, "desc2"),
+        ("one valid column", 1, 40, 200, "one_col"),
+    )
+    rng = np.random.default_rng(seed)
+    return [_adversarial_case(rng, gate, name, B, n1, n2, mode, COL_SPLIT,
+                              COL_TILE)
+            for gate in GATES for name, B, n1, n2, mode in specs]
+
+
+def _equal_or_fail(got, ref, what):
+    errs = [float((g.double() - r.double()).abs().max())
+            for g, r in zip(got, ref)]
+    if any(e != 0.0 for e in errs):
+        raise SmokeError(f"match_best2 != plain on {what}: max |d1,d2,idx| "
+                         f"{errs}")
+    return max(errs)
+
+
 def phase_kernels(card):
-    """Kernel against plain version at the main-path shapes, all gates."""
+    """Kernel against plain version at the main-path shapes and on the
+    adversarial cases, all gates; times, bounds and the library call."""
     import torch
 
     from irotavg_tpu_torch.device import make_generator
@@ -191,31 +400,69 @@ def phase_kernels(card):
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = make_generator(7, dev)
     max_err = 0.0
-    main_ms = None
+    timed = {}
     for B, n1, n2 in MATCH_SHAPES:
+        lib_ms = None
         for gate in match.GATES:
             args = _match_inputs(torch, B, n1, n2, gate, gen, dev)
             got = match.best2(*args, gate)
             ref = match.best2_plain(*args, gate)
             torch.cuda.synchronize()
-            errs = [float((g.double() - r.double()).abs().max())
-                    for g, r in zip(got, ref)]
+            max_err = max(max_err, _equal_or_fail(
+                got, ref, f"B={B} {n1}x{n2} gate={gate}"))
             n_match = int((ref[0] < match.BIG).sum())
-            if any(e != 0.0 for e in errs):
-                raise SmokeError(f"match_best2 != plain at B={B} {n1}x{n2} "
-                                 f"gate={gate}: max |d1,d2,idx| {errs}")
-            max_err = max(max_err, *errs)
-            k_ms = _median_ms(torch, lambda: match.best2(*args, gate))
-            p_ms = _median_ms(torch, lambda: match.best2_plain(*args, gate))
+            launch, _ = match.best2_launcher(*args, gate)
+            k_ms = _time_ms(torch, launch)
+            p_ms = _time_ms(torch, lambda: match.best2_plain(*args, gate),
+                            per_window=10, windows=5)
+            if lib_ms is None:
+                # the library yardstick: distances only, from the ±1 bf16
+                # expansions made outside the timed window
+                a = match.unpack_pm1(args[0]).to(torch.bfloat16)
+                bt = match.unpack_pm1(args[1]).to(torch.bfloat16) \
+                    .transpose(-1, -2).contiguous()
+                dots = torch.empty((B, n1, n2), dtype=torch.bfloat16,
+                                   device=dev)
+                lib_ms = _time_ms(torch,
+                                  lambda: torch.matmul(a, bt, out=dots))
+            b_ms, b_by = match.bound_ms(B, n1, n2)
             print(f"[kernel] match_best2 B={B} {n1}x{n2} {gate:>15}: equal "
-                  f"(rows matched {n_match}); kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms  ({card})")
-            if (B, n1, n2, gate) == (3, 2000, 2000, "epipolar_nonode"):
-                main_ms = (k_ms, p_ms)
+                  f"(rows matched {n_match}); kernel {k_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}), share of bound "
+                  f"{b_ms / k_ms:.4f}; plain {p_ms:.4f} ms; library "
+                  f"{lib_ms:.4f} ms  ({card})")
+            timed[(B, n1, n2, gate)] = {
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "bound_share": b_ms / k_ms,
+                "library_ms": lib_ms}
+    n_adv = 0
+    for case in adversarial_match_cases(seed=0):
+        t = {k: torch.from_numpy(np.ascontiguousarray(case[k])).to(dev)
+             for k in ("desc1", "desc2", "rowf", "colf")}
+        t["desc1"] = t["desc1"].view(torch.int32)
+        t["desc2"] = t["desc2"].view(torch.int32)
+        args = (t["desc1"], t["desc2"], t["rowf"], t["colf"])
+        got = match.best2(*args, case["gate"])
+        ref = match.best2_plain(*args, case["gate"])
+        torch.cuda.synchronize()
+        max_err = max(max_err, _equal_or_fail(
+            got, ref, f"{case['name']} gate={case['gate']}"))
+        B, n1 = case["desc1"].shape[:2]
+        n_adv += 1
+        print(f"[kernel] adversarial {case['gate']:>15} {case['name']} "
+              f"(B={B}, N1={n1}, N2={case['desc2'].shape[-2]}): equal, "
+              f"rows matched {int((ref[0] < match.BIG).sum())}")
+    print(f"[kernel] match_best2 exactly equal to best2_plain in "
+          f"{len(timed)} main-shape cases and {n_adv} adversarial cases  "
+          f"({card})")
+    main = timed[(3, 2000, 2000, "epipolar_nonode")]
     return {"name": "match_best2", "route": "cuda",
             "source": "irotavg_tpu_torch/csrc/match_best2.cu",
             "replaces": "irotavg_tpu/ops/match_pallas.py:80",
-            "max_abs_err": max_err, "ms": main_ms[0], "plain_ms": main_ms[1]}
+            "max_abs_err": max_err, **main,
+            "cases": {"B3_2000x2000_epipolar_nonode": main,
+                      "B1_2000x2000_epipolar":
+                          timed[(1, 2000, 2000, "epipolar")]}}
 
 
 # -- phase 3: the synthetic KITTI-sized sequence and the CLI ------------------
@@ -450,7 +697,8 @@ def phase_main_path(card, out):
     try:
         log, wall, launches, by_gate = run_cli(
             ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
-             "--out_dir", res, "--max_frames", str(MAIN_FRAMES)],
+             "--out_dir", res, "--max_frames", str(MAIN_FRAMES),
+             "--device", "cuda"],
             out, "irotavg")
     finally:
         shutil.rmtree(seq)         # the frames are regenerated from the seed
@@ -528,8 +776,8 @@ def phase_loop_closure(card, out):
         for name, extra in (("A", []), ("B", ["--no_loop_closure"])):
             res = os.path.join(out, f"out_{name}")
             log, wall, launches, by_gate = run_cli(
-                [vocab, yaml, seq, "--image_ext", ".pgm", "--out_dir", res]
-                + extra, out, f"irotavg_{name}")
+                [vocab, yaml, seq, "--image_ext", ".pgm", "--out_dir", res,
+                 "--device", "cuda"] + extra, out, f"irotavg_{name}")
             rmse, n_key = rotation_rmse_deg(
                 os.path.join(res, "rotavg_poses.txt"),
                 os.path.join(res, "rotavg_poses_ids.txt"), R_gt)

@@ -5,10 +5,11 @@ src/IRotAvg.cpp:132-398).
     python -m irotavg_tpu_torch.app.irotavg VOCAB CONFIG SEQUENCE_PATH
         [--image_ext .png] [--timestamp_offset 0] [--gt FILE]
         [--max_frames N] [--out_dir DIR] [--no_loop_closure]
-        [--prefetch 0|1]
+        [--prefetch 0|1] [--device cuda|cpu]
 
 ``VOCAB`` is a DBoW2 text vocabulary (ORB-SLAM's ``ORBvoc.txt`` format),
-or ``none`` to run without place recognition.
+or ``none`` to run without place recognition.  ``--device`` is ``cuda``
+by default; without a card the CLI exits 2 unless given ``--device cpu``.
 
 Per frame: Frame creation (extract + undistort + BoW) ->
 ViewGraph.process_frame (skip if not a keyframe) -> loop closure
@@ -53,6 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_loop_closure", action="store_true")
     p.add_argument("--prefetch", type=int, default=1, choices=(0, 1),
                    help="0/1: per-frame extraction (the only mode ported)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
     p.add_argument("--trace_dir", default=None, help="not ported yet")
     p.add_argument("--checkpoint", action="store_true", help="not ported yet")
     p.add_argument("--resume", default=None, help="not ported yet")
@@ -90,9 +93,13 @@ def main(argv=None) -> int:
     from irotavg_tpu_torch.utils.sequence import SequenceLoader, load_gray
     from irotavg_tpu_torch.utils.timing import StageTimer
 
+    try:
+        device = pick_device(args.device)
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 2
     cfg = PipelineConfig()
     cam_cfg, orb_cfg = load_settings(args.config)
-    device = pick_device()
 
     vocab = None
     if args.orb_vocabulary.lower() not in ("none", "-", ""):

@@ -1,8 +1,10 @@
 """Device selection and the port's numeric policy.
 
-* The device is CUDA when a card is present, the CPU otherwise; every
-  function of the port takes an explicit ``device=`` (or follows the
-  device of its tensor arguments) — there is no hidden global device.
+* The device is the CUDA card unless the caller asks for the CPU
+  (``device="cpu"``); without a card the default raises instead of
+  falling back.  Every function of the port takes an explicit
+  ``device=`` (or follows the device of its tensor arguments) — there is
+  no hidden global device.
 * TF32 is off for matmuls and convolutions: the epipolar gate and the
   Sampson residuals need full f32 products (the reference runs its
   einsums at ``Precision.HIGHEST``).
@@ -28,11 +30,17 @@ def set_numeric_policy() -> None:
 set_numeric_policy()
 
 
-def pick_device(name: str | None = None) -> torch.device:
-    """``name`` if given, else CUDA when available, else the CPU."""
-    if name is not None:
-        return torch.device(name)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def pick_device(name=None) -> torch.device:
+    """``name`` (a string or ``torch.device``) if given, else CUDA.  Raises
+    ``RuntimeError`` for a CUDA device when no card is available: the CPU
+    runs only when asked for with ``device="cpu"``."""
+    dev = torch.device("cuda" if name is None else name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} asked for, but torch.cuda.is_available() "
+            f"is False; pass device=\"cpu\" (CLI: --device cpu) to run on "
+            f"the CPU")
+    return dev
 
 
 def make_generator(seed: int, device) -> torch.Generator:

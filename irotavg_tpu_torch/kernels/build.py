@@ -4,11 +4,14 @@ Each kernel source is compiled at first use into a shared library with a
 plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o _build/lib<name>_<hash>.so csrc/<name>.cu
+         -Xptxas -v -shared -Xcompiler -fPIC \
+         -o _build/lib<name>_<hash>.so csrc/<name>.cu
 
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt.  The build goes to ``kernels/_build/`` (git-ignored).
-A failed build raises with nvcc's stderr; there is no fallback.
+A failed build raises with nvcc's stderr; there is no fallback.  ptxas's
+report of each kernel's registers, shared memory and spills (``-Xptxas
+-v``) is kept in ``ptxas_report``.
 """
 
 from __future__ import annotations
@@ -25,10 +28,13 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "kernels", "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 # seconds spent in nvcc per library, for the build report
 build_seconds: dict[str, float] = {}
+# ptxas's -v report per library built by this process
+ptxas_report: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -66,6 +72,7 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc failed building {name} (rc {r.returncode}):\n"
                 f"{' '.join(cmd)}\n{r.stderr}")
+        ptxas_report[name] = r.stderr
         os.replace(tmp, out)
     else:
         build_seconds.setdefault(name, 0.0)

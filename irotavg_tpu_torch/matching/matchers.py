@@ -25,12 +25,9 @@ _BIG = 10_000
 
 
 def _best_two(desc1, desc2, rowf, colf, gate):
-    """(d1, d2) as int32 and the best column as int64."""
-    batch = desc1.shape[:-2]
-    if desc2.dim() < desc1.dim():        # shared column frame
-        desc2 = desc2.expand(batch + desc2.shape).contiguous()
-    if colf.dim() < rowf.dim():
-        colf = colf.expand(batch + colf.shape).contiguous()
+    """(d1, d2) as int32 and the best column as int64.  A shared column
+    frame (2-D ``desc2`` or ``colf`` beside batched rows) goes to the
+    kernel as it is, with a batch stride of 0."""
     d1, d2, idx = best2(desc1, desc2, rowf, colf, gate)
     return d1.to(torch.int32), d2.to(torch.int32), idx.long()
 

@@ -1,6 +1,7 @@
 """The port's ``irotavg`` CLI, in-process, on PGM frames: the output
 contract of test_app.py:147-155 without and with a vocabulary, the
-not-ported options, and the matcher's CPU dispatch."""
+not-ported options, the device policy (the card unless ``--device cpu``)
+and the matcher's CPU dispatch."""
 
 import numpy as np
 import pytest
@@ -60,7 +61,7 @@ def test_cli_output_contract(tmp_path, sequence):
     out = tmp_path / "out"
     rc = port_cli.main(["none", str(yaml), str(seq), "--image_ext", ".pgm",
                         "--gt", str(tmp_path / "gt.txt"),
-                        "--out_dir", str(out)])
+                        "--out_dir", str(out), "--device", "cpu"])
     assert rc == 0
     _check_outputs(out)
 
@@ -93,7 +94,7 @@ def test_cli_with_vocabulary(tmp_path, sequence, monkeypatch, capsys):
     monkeypatch.setattr(ViewGraph, "process_frame", spy)
     out = tmp_path / "out"
     rc = port_cli.main([str(vocab), str(yaml), str(seq), "--image_ext",
-                        ".pgm", "--out_dir", str(out)])
+                        ".pgm", "--out_dir", str(out), "--device", "cpu"])
     assert rc == 0
     _check_outputs(out)
     assert len(kept) >= 4
@@ -124,3 +125,28 @@ def test_matcher_runs_plain_version_on_cpu(sequence):
     d1, d2, idx = match.best2(d, d, f, f, "none")
     assert match.best2.launches == before
     assert d1.tolist() == [0.0] * 4 and idx.tolist() == [0] * 4
+
+
+def test_pick_device_takes_the_card_unless_asked_for_cpu(monkeypatch):
+    from irotavg_tpu_torch.device import pick_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            pick_device(name)
+    assert pick_device("cpu") == torch.device("cpu")
+    assert pick_device(torch.device("cpu")) == torch.device("cpu")
+
+
+def test_cli_without_a_card_needs_device_cpu(tmp_path, sequence, monkeypatch,
+                                             capsys):
+    """No silent CPU: without a card the CLI's default (--device cuda)
+    exits 2 and names the CPU option."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seq, yaml = _write_inputs(tmp_path, sequence)
+    out = tmp_path / "out"
+    rc = port_cli.main(["none", str(yaml), str(seq), "--image_ext", ".pgm",
+                        "--out_dir", str(out)])
+    assert rc == 2
+    assert "--device cpu" in capsys.readouterr().err
+    assert not out.exists()

@@ -141,7 +141,7 @@ def test_refine_rematches_like_reference(scene, monkeypatch, has_nodes):
     monkeypatch.setattr(fused, "_match_epipolar_core", spy)
     t1 = tvg.ViewGraph._tensors(f1, has_nodes)
     t2 = tvg.ViewGraph._tensors(f2, has_nodes)
-    tc = tvg.ViewGraph(cam)._consts(torch.device("cpu"))
+    tc = tvg.ViewGraph(cam, device="cpu")._consts(torch.device("cpu"))
     m12 = torch.from_numpy(np.asarray(m12_0, np.int64))
     fused.fused_refine(
         tuple(a[None] for a in t1), t2[:6],
@@ -219,7 +219,7 @@ def test_bow_pair_estimate_matches_reference(scene, pair):
         c["K_inv"], c["sigma2"], c["camv"], c["th_norm"],
         np.uint32((j * 31 + i) & 0xFFFFFFFF), np.float32(0.9),
         np.int32(MIN_MATCHES), has_nodes=True)
-    tc = tvg.ViewGraph(cam)._consts(torch.device("cpu"))
+    tc = tvg.ViewGraph(cam, device="cpu")._consts(torch.device("cpu"))
     _, R, _, _, m12f, ok = fused.fused_bow_pair_estimate(
         t1, t2, tc["K_inv"], tc["sigma2"], tc["cam"], tc["th_norm"],
         torch.Generator().manual_seed(j * 31 + i), 0.9, MIN_MATCHES, True)

@@ -212,3 +212,39 @@ def test_bow_core_matches_reference(planted, has_nodes):
                                 0.9, has_nodes=has_nodes)
     assert (np.asarray(ref) >= 0).sum() >= 10
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("gate", GATES)
+def test_best_two_shared_column_frame_equals_expanded(problem, gate):
+    """A 2-D ``desc2`` / ``colf`` beside batched rows (the refine's shared
+    current frame) gives what the expanded, copied frame gives."""
+    d1, d2, m = problem
+    rng = np.random.default_rng(13)
+    perms = [rng.permutation(len(d1)) for _ in range(3)]
+    w1, w2, rowf, colf = _port_inputs(gate, d1, d2, m)
+    desc1 = torch.stack([w1[p] for p in perms])
+    rowfb = torch.stack([rowf[p] for p in perms])
+    shared = tm._best_two(desc1, w2, rowfb, colf, gate)
+    expanded = tm._best_two(desc1, w2.expand(3, *w2.shape).contiguous(),
+                            rowfb, colf.expand(3, *colf.shape).contiguous(),
+                            gate)
+    for s, e in zip(shared, expanded):
+        assert s.shape == e.shape == (3, len(d1))
+        assert torch.equal(s, e)
+
+
+def test_best2_work_and_bound_by_hand():
+    """B=3, N1=N2=2000: 2*256 int8 operations a pair and every input
+    read once, every output written once."""
+    ops, nbytes = tmatch.best2_work(3, 2000, 2000)
+    assert ops == 2 * 256 * 3 * 2000 * 2000 == 6_144_000_000
+    # desc1, rowf, desc2, colf: 3*2000 rows of 32 B each; d1, d2, idx
+    assert nbytes == 4 * 3 * 2000 * 32 + 3 * 3 * 2000 * 4 == 840_000
+    ms, by = tmatch.bound_ms(3, 2000, 2000)
+    assert by == "operations"
+    assert ms == pytest.approx(6.144e9 / 1979e12 * 1e3)      # 3.10 us
+    assert ms == pytest.approx(0.0031046, rel=1e-4)
+    # a tiny problem is bound by its bytes
+    ms, by = tmatch.bound_ms(1, 8, 8)
+    assert by == "bytes"
+    assert ms == pytest.approx((8 * 64 + 8 * 64 + 8 * 12) / 3.35e12 * 1e3)
