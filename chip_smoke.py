@@ -40,6 +40,22 @@ prints no result line):
    edge spanning more than 10 views, A launches the matcher under the
    ``node`` and ``epipolar`` gates, and 2 * RMSE_A < RMSE_B (the payoff
    tests/test_loop_payoff.py asserts for the reference).
+5. solver surfaces (f64 on the card) — (a) the port's ``l1_irls`` CLI on
+   the golden problem (1832 views, 3655 edges): row counts, and
+   bench.py:321-322's quality rule against the scipy oracle
+   ``tests/ref_impl.py``; (b) bench.py:379-401's 50k-view problem with
+   the reference's f64 CG configuration, twice: converged, finite, mean
+   error vs GT within 0.01 deg of the JAX package's f64 value, CG
+   iterations, seconds and whether the two runs are bit-identical;
+   (c) a KITTI-length (4541-view) graph through ``IncrementalRotAvg``'s
+   ``rot_avg(5_000_000)``: the CG window (bucket 8192 > 2048) against the
+   same graph solved dense, max geodesic < 1e-6 deg; (d) bench.py's 384
+   windows through ``solve_windows`` against the per-window engine
+   solve: equal iteration counts, quaternions within 1e-9, windows/s.
+6. checkpoint/resume — phase 3's sequence through the CLI in two parts
+   (75 keyframes with ``--checkpoint``, then ``--resume`` to 150): the
+   same keyframe ids and connections as phase 3, poses within 1e-9 rad
+   (bit-equality printed), the matcher launched in both parts.
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -87,6 +103,23 @@ LOOP_PAYOFF = 2.0
 LOOP_MIN_SPAN = 10
 VOCAB_FIXTURE = os.path.join(HERE, "tests", "data",
                              "product_vocab_k10_L5_v1.txt.gz")
+# phase 5: the repo's golden problem (the reference's bundled
+# ral/data/ravg_input.txt)
+GOLDEN = os.path.join(HERE, "tests", "data", "ravg_input.txt.gz")
+GOLDEN_N, GOLDEN_M = 1832, 3655
+# bench.py:379-401's 50k-view quasi-global problem and the reference's
+# own f64 cross-check configuration (bench.py:481-482)
+LARGE_N, LARGE_EXTRA = 50_000, 200_000
+# the JAX package's f64 mean error vs GT on that problem with that
+# configuration, computed once on a CPU through the JAX package (41 IRLS
+# iterations)
+LARGE_JAX_F64_MEAN_ERR_DEG = 3.7716418809615866
+LARGE_TOL_DEG = 0.01
+KITTI_VIEWS = 4541            # keyframes of a KITTI 00 run
+KITTI_TOL_DEG = 1e-6          # CG vs dense engine solve, both f64
+N_WINDOWS = 384               # bench.py:500's batch of windows
+# phase 6: phase 3's run cut after this many keyframes, then resumed
+RESUME_AT = 75
 
 
 class SmokeError(RuntimeError):
@@ -646,19 +679,31 @@ def rotation_rmse_deg(poses_path, ids_path, R_gt):
 def run_cli(argv, out, name):
     """The port's CLI in-process, stdout to ``out/name.log``, with the
     matcher's launch counters set to 0 just before and read just after.
-    Returns (log, wall seconds, launches, launches by gate); raises when
-    the CLI returns non-zero."""
+    Returns (log, wall seconds, launches, launches by gate, the run's view
+    graph); raises when the CLI returns non-zero."""
     import contextlib
 
     from irotavg_tpu_torch.app import irotavg
+    from irotavg_tpu_torch.engine.viewgraph import ViewGraph
     from irotavg_tpu_torch.ops import match
+
+    graphs = []
+    process_frame = ViewGraph.process_frame
+
+    def recording(self, *a, **kw):
+        graphs[:] = [self]
+        return process_frame(self, *a, **kw)
 
     log_path = os.path.join(out, f"{name}.log")
     with open(log_path, "w", buffering=1) as fh:           # line-buffered
+        ViewGraph.process_frame = recording
         match.reset_launch_counts()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(fh):
-            rc = irotavg.main(argv)
+        try:
+            with contextlib.redirect_stdout(fh):
+                rc = irotavg.main(argv)
+        finally:
+            ViewGraph.process_frame = process_frame
         wall = time.perf_counter() - t0
         launches = match.best2.launches
         by_gate = dict(match.best2.launches_by_gate)
@@ -667,7 +712,7 @@ def run_cli(argv, out, name):
     if rc != 0:
         raise SmokeError(f"irotavg CLI ({name}) returned {rc}; log tail:\n"
                          + log[-2000:])
-    return log, wall, launches, by_gate
+    return log, wall, launches, by_gate, graphs[0] if graphs else None
 
 
 def _stage_lines(tag, log, card):
@@ -694,14 +739,11 @@ def phase_main_path(card, out):
           f"{KITTI_W}x{KITTI_H} in {time.perf_counter() - t0:.1f} s "
           f"(host numpy)")
     res = os.path.join(out, "out")
-    try:
-        log, wall, launches, by_gate = run_cli(
-            ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
-             "--out_dir", res, "--max_frames", str(MAIN_FRAMES),
-             "--device", "cuda"],
-            out, "irotavg")
-    finally:
-        shutil.rmtree(seq)         # the frames are regenerated from the seed
+    log, wall, launches, by_gate, vg = run_cli(
+        ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
+         "--out_dir", res, "--max_frames", str(MAIN_FRAMES),
+         "--device", "cuda"],
+        out, "irotavg")
     if launches <= 0:
         raise SmokeError("the main path never launched match_best2")
     rmse, n_key = rotation_rmse_deg(os.path.join(res, "rotavg_poses.txt"),
@@ -717,7 +759,7 @@ def phase_main_path(card, out):
     if not np.isfinite(rmse) or rmse >= RMSE_BOUND_DEG:
         raise SmokeError(f"rotation RMSE {rmse} deg is not under "
                          f"{RMSE_BOUND_DEG}")
-    return launches, by_gate
+    return launches, by_gate, (seq, gt, yaml, (vg, res))
 
 
 # -- phase 4: place recognition and loop closure ------------------------------
@@ -775,7 +817,7 @@ def phase_loop_closure(card, out):
         _vocab_timings(card, vocab, seq)
         for name, extra in (("A", []), ("B", ["--no_loop_closure"])):
             res = os.path.join(out, f"out_{name}")
-            log, wall, launches, by_gate = run_cli(
+            log, wall, launches, by_gate, _ = run_cli(
                 [vocab, yaml, seq, "--image_ext", ".pgm", "--out_dir", res,
                  "--device", "cuda"] + extra, out, f"irotavg_{name}")
             rmse, n_key = rotation_rmse_deg(
@@ -822,6 +864,378 @@ def phase_loop_closure(card, out):
     return {name: (r["launches"], r["by_gate"]) for name, r in runs.items()}
 
 
+# -- phase 5: the solver surfaces ---------------------------------------------
+
+
+def bench_windows(W, seed=21):
+    """Windows from bench.py:520-535's generator (numpy): n 12-15 views,
+    2n extra edges, 2 deg noise, 10% outliers, warm start GT perturbed by
+    3 deg, f = 2.  Returns ``[(edges, QQ, Q0, f)]``."""
+    from scipy.spatial.transform import Rotation as Rsc
+    from synth import make_problem
+
+    rng = np.random.default_rng(seed)
+    problems = []
+    for k in range(W):
+        nk = int(rng.integers(12, 16))
+        p = make_problem(n=nk, extra_edges=nk * 2, noise_deg=2.0,
+                         outlier_frac=0.1, seed=500 + k)
+        pert = Rsc.from_rotvec(rng.normal(scale=np.radians(3.0),
+                                          size=(nk, 3)))
+        Q0 = (pert * Rsc.from_quat(p["Q_gt"])).as_quat()
+        Q0[:2] = p["Q_gt"][:2]
+        problems.append((p["edges"].astype(np.int32), p["QQ"], Q0, 2))
+    return problems
+
+
+def kitti_chain(n, seed=5):
+    """A KITTI-length keyframe graph (numpy): a trajectory of ``n``
+    rotations (a random walk of 2 deg steps), 3 sequential edges per view
+    with 0.5 deg noise, and a loop edge every 37 views from view 400 on
+    back to a view 300-1500 earlier where there is one (a drive that
+    keeps revisiting its streets).  Returns (R_gt quats, edges, QQ, warm start chained along
+    the sequential edges)."""
+    from scipy.spatial.transform import Rotation as Rsc
+
+    rng = np.random.default_rng(seed)
+    R = Rsc.from_rotvec(np.cumsum(
+        rng.normal(scale=np.radians(2.0), size=(n, 3)), axis=0))
+    edges = [(j - d, j) for j in range(n) for d in (1, 2, 3) if j >= d]
+    for j in range(400, n, 37):
+        i = j - int(rng.integers(300, 1500))
+        if i >= 0:
+            edges.append((i, j))
+    edges = np.array(edges)
+    noise = Rsc.from_rotvec(rng.normal(scale=np.radians(0.5),
+                                       size=(len(edges), 3)))
+    QQ = (noise * R[edges[:, 1]] * R[edges[:, 0]].inv()).as_quat()
+    Q0 = np.empty((n, 4))
+    Q0[0] = R[0].as_quat()
+    first = {int(j): k for k, (i, j) in enumerate(edges) if j - i == 1}
+    for j in range(1, n):
+        Q0[j] = (Rsc.from_quat(QQ[first[j]]) * Rsc.from_quat(Q0[j - 1])
+                 ).as_quat()
+    return R.as_quat(), edges, QQ, Q0
+
+
+def geo_deg(Qa, Qb):
+    """Per-row rotation angle (deg) between two quaternion sets,
+    sign-invariant and accurate for tiny angles."""
+    Qa = Qa / np.linalg.norm(Qa, axis=-1, keepdims=True)
+    Qb = Qb / np.linalg.norm(Qb, axis=-1, keepdims=True)
+    s = np.sign(np.sum(Qa * Qb, axis=-1, keepdims=True))
+    chord = np.linalg.norm(Qa - s * Qb, axis=-1)
+    return np.degrees(4 * np.arcsin(np.clip(chord / 2, 0, 1)))
+
+
+def _device(torch):
+    """The card the solver phases run on."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _sync_s(torch, fn):
+    """(result, seconds) of ``fn()`` between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+class _CountCG:
+    """Collects the iteration counts of every ``laplacian_cg_solve`` the
+    IRLS and L1-RA modules make inside the ``with`` block (device
+    tensors, summed at the end)."""
+
+    def __enter__(self):
+        import importlib
+
+        self.its = []
+        self._mods = [importlib.import_module(f"irotavg_tpu_torch.solver.{m}")
+                      for m in ("irls", "l1ra")]
+        orig = self._orig = self._mods[0].laplacian_cg_solve
+
+        def counting(*a, **kw):
+            x, it = orig(*a, **kw)
+            self.its.append(it.sum())
+            return x, it
+
+        for m in self._mods:
+            m.laplacian_cg_solve = counting
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.laplacian_cg_solve = self._orig
+
+    def total(self):
+        return int(sum(int(i) for i in self.its))
+
+
+def phase_golden(card, out):
+    """(a) The port's ``l1_irls`` CLI on the golden problem against the
+    scipy oracle, with bench.py:321-322's quality rule."""
+    import contextlib
+
+    import ref_impl as oracle
+    import torch
+
+    from irotavg_tpu_torch import so3
+    from irotavg_tpu_torch.app import l1_irls
+    from irotavg_tpu_torch.solver.init import init_mst
+    from irotavg_tpu_torch.solver.io import read_problem
+
+    sol = os.path.join(out, "l1_irls_out.txt")
+    log_path = os.path.join(out, "l1_irls.log")
+    with open(log_path, "w") as fh, contextlib.redirect_stdout(fh):
+        t0 = time.perf_counter()
+        rc = l1_irls.main([GOLDEN, sol, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    with open(log_path) as fh:
+        log = fh.read()
+    if rc != 0:
+        raise SmokeError(f"l1_irls returned {rc}:\n{log[-2000:]}")
+    with open(sol) as fh:
+        lines = fh.read().splitlines()
+    if len(lines) != GOLDEN_N + GOLDEN_M:
+        raise SmokeError(f"l1_irls wrote {len(lines)} rows, expected "
+                         f"{GOLDEN_N} rotations + {GOLDEN_M} weights")
+    wxyz = np.array([[float(v) for v in ln.split()]
+                     for ln in lines[:GOLDEN_N]])
+    w = np.array([float(v) for v in lines[GOLDEN_N:]])
+    Qf = wxyz[:, [1, 2, 3, 0]]
+    if Qf.shape != (GOLDEN_N, 4) or not (np.isfinite(Qf).all()
+                                         and np.isfinite(w).all()):
+        raise SmokeError("l1_irls wrote malformed or non-finite rows")
+
+    prob = read_problem(GOLDEN)
+    f = max(prob["f"], 1)
+    if prob["f"] == 0:
+        prob["Q"][0] = [0, 0, 0, 1]
+    edges, QQ = prob["edges"], prob["QQ"]
+    Q0 = init_mst(prob["Q"], QQ, edges, f)
+    A = oracle.make_A(len(Q0), f, edges)
+    t0 = time.perf_counter()
+    Q_b, l1_b, _ = oracle.l1ra(QQ, edges, A, Q0.copy(), f, max_iters=5,
+                               change_th=1e-3)
+    Q_b, _, irls_b, _ = oracle.irls(QQ, edges, A, "Geman-McClure",
+                                    np.deg2rad(5.0), Q_b, f, max_iters=50,
+                                    change_th=1e-3)
+    oracle_s = time.perf_counter() - t0
+    Q_b = Q_b / np.linalg.norm(Q_b, axis=1, keepdims=True)
+
+    def mean_res_deg(Q):
+        r = so3.log_map(so3.delta_rel(torch.from_numpy(edges).long(),
+                                      torch.from_numpy(QQ),
+                                      torch.from_numpy(Q)))[:, 3]
+        return float(np.degrees(np.abs(r.numpy())).mean())
+
+    res, res_b = mean_res_deg(Qf), mean_res_deg(Q_b)
+    g = geo_deg(Qf, Q_b)
+    ok = res < max(1.05 * res_b, 0.05) and float(g.max()) < 0.5
+    for line in log.splitlines():
+        if "iterations =" in line or "runtime" in line:
+            print(f"[solver] golden {line.strip()}  ({card})")
+    print(f"[solver] golden problem {GOLDEN_N} views, {GOLDEN_M} edges: CLI "
+          f"wall {wall:.3f} s (process-internal; first CUDA solver calls "
+          f"included); mean edge residual {res:.6f} deg (oracle "
+          f"{res_b:.6f}, {l1_b} + {irls_b} iterations, {oracle_s:.3f} s on "
+          f"the host); geodesic to the oracle max {g.max():.6f} mean "
+          f"{g.mean():.7f} deg; quality_ok {ok}  ({card})")
+    if not ok:
+        raise SmokeError("golden problem fails bench.py's quality rule")
+
+
+def large_problem(dev):
+    """bench.py:379-401's 50k-view problem on ``dev`` in f64 with the
+    reference's f64 CG configuration: (problem dict, graph, IRLSConfig)."""
+    import torch
+    from scipy.spatial.transform import Rotation as Rsc
+    from synth import make_problem
+
+    from irotavg_tpu_torch.solver.graph import RotationGraph
+    from irotavg_tpu_torch.solver.irls import IRLSConfig
+
+    p = make_problem(n=LARGE_N, extra_edges=LARGE_EXTRA, noise_deg=3.0,
+                     outlier_frac=0.1, seed=11)
+    rng = np.random.default_rng(12)
+    perturb = Rsc.from_rotvec(rng.normal(scale=np.radians(3.0),
+                                         size=(LARGE_N, 3)))
+    Q0 = (perturb * Rsc.from_quat(p["Q_gt"])).as_quat()
+    Q0[0] = p["Q_gt"][0]
+    g = RotationGraph.create(p["edges"], p["QQ"], Q0, f=1,
+                             dtype=torch.float64, device=dev)
+    cfg = IRLSConfig(max_iters=100, change_th=1e-4, backend="cg",
+                     cg_tol=1e-10, cg_maxiter=400)
+    return p, g, cfg
+
+
+def phase_large(card):
+    """(b) bench.py:379-401's 50k-view quasi-global solve, f64 CG, twice."""
+    import torch
+
+    from irotavg_tpu_torch import so3
+    from irotavg_tpu_torch.solver.irls import irls
+
+    t0 = time.perf_counter()
+    p, g, cfg = large_problem(_device(torch))
+    print(f"[solver] 50k problem: {LARGE_N} views, {g.m} edges, built in "
+          f"{time.perf_counter() - t0:.1f} s (host numpy)")
+    runs = []
+    for _ in range(2):
+        with _CountCG() as cg:
+            (Q, _w, iters, score), secs = _sync_s(
+                torch, lambda: irls(g, cfg))
+        runs.append((Q, iters, secs, cg.total()))
+    Q, iters, _, cg_total = runs[1]
+    identical = torch.equal(runs[0][0], runs[1][0])
+    Qn = so3.qnormalize(Q).cpu().numpy()
+    err = float(np.degrees(2 * np.arccos(np.clip(
+        np.abs(np.sum(Qn * p["Q_gt"], axis=-1)), -1, 1))).mean())
+    print(f"[solver] 50k f64 CG: IRLS iterations {runs[0][1]} / {iters}, CG "
+          f"iterations {runs[0][3]} / {cg_total}, solve {runs[0][2]:.3f} / "
+          f"{runs[1][2]:.3f} s (run 1 / run 2), final score {score:.3e}; "
+          f"mean error vs GT {err:.10f} deg (JAX f64 "
+          f"{LARGE_JAX_F64_MEAN_ERR_DEG:.10f}); second run bit-identical: "
+          f"{identical}  ({card})")
+    if not (iters < cfg.max_iters and np.isfinite(Qn).all()):
+        raise SmokeError(f"50k solve: {iters} IRLS iterations or non-finite")
+    if abs(err - LARGE_JAX_F64_MEAN_ERR_DEG) >= LARGE_TOL_DEG:
+        raise SmokeError(f"50k solve: mean error {err} deg is not within "
+                         f"{LARGE_TOL_DEG} of the JAX package's f64 "
+                         f"{LARGE_JAX_F64_MEAN_ERR_DEG}")
+
+
+def phase_kitti_resolve(card):
+    """(c) A KITTI-length global re-solve through the engine: the CG
+    window against the same graph solved dense."""
+    import torch
+
+    from irotavg_tpu_torch.engine.incremental import IncrementalRotAvg
+
+    R_gt, edges, QQ, Q0 = kitti_chain(KITTI_VIEWS)
+    dev = _device(torch)
+    out = {}
+    for name, dense_n_max in (("cg", 2048), ("dense", 8192)):
+        eng = IncrementalRotAvg(device=dev, dense_n_max=dense_n_max)
+        for _ in range(KITTI_VIEWS):
+            eng.add_view()
+        for (i, j), q in zip(edges, QQ):
+            eng.add_edge(int(i), int(j), q)
+        eng.Q = Q0.copy()
+        eng.fix_pose(0)
+        with _CountCG() as cg:
+            stats, secs = _sync_s(torch, lambda: eng.rot_avg(5_000_000))
+        out[name] = (eng.Q.copy(), stats, secs, cg.total())
+        print(f"[solver] KITTI-length re-solve, {name}: {KITTI_VIEWS} views, "
+              f"{len(edges)} edges, bucket {stats['n_pad']}, backend "
+              f"{stats['backend']}, IRLS iterations {stats['irls_iters']}, "
+              f"CG iterations {cg.total()}, {secs:.3f} s; mean error vs GT "
+              f"{geo_deg(out[name][0], R_gt).mean():.4f} deg (warm start "
+              f"{geo_deg(Q0, R_gt).mean():.4f})  ({card})")
+    if out["cg"][1]["backend"] != "cg" or out["dense"][1]["backend"] != \
+            "dense":
+        raise SmokeError("the engine did not switch backends at dense_n_max")
+    d = float(geo_deg(out["cg"][0], out["dense"][0]).max())
+    print(f"[solver] KITTI-length re-solve: CG vs dense max geodesic "
+          f"{d:.3e} deg (bound {KITTI_TOL_DEG})  ({card})")
+    if not np.isfinite(d) or d >= KITTI_TOL_DEG:
+        raise SmokeError(f"CG and dense engine solves differ by {d} deg")
+
+
+def phase_windows(card):
+    """(d) bench.py:520-535's 384 windows in one batched call against the
+    port's single-window solve, window by window, on the card."""
+    import torch
+
+    from irotavg_tpu_torch.engine.batched import solve_windows
+    from irotavg_tpu_torch.engine.incremental import _window_solve
+
+    dev = _device(torch)
+    problems = bench_windows(N_WINDOWS)
+    times = []
+    for _ in range(4):           # the first call includes CUDA start-up
+        (Qb, wb, itb, _), secs = _sync_s(torch, lambda: solve_windows(
+            problems, m_pad=64, n_pad=16, device=dev))
+        times.append(secs)
+    t_batch = statistics.median(times[1:])
+    worst, iters_equal, singles = 0.0, True, []
+    for k, (e, qq, q0, f) in enumerate(problems):
+        (Q1, _w, it1, _), secs = _sync_s(torch, lambda: _window_solve(
+            torch.as_tensor(e, device=dev).long(),
+            torch.as_tensor(qq, device=dev), torch.as_tensor(q0, device=dev),
+            f, l1_iters=100, irls_iters=100, sigma=float(np.radians(5.0)),
+            change_th=1e-3, cost="Geman-McClure"))
+        singles.append(secs)
+        iters_equal &= int(itb[k]) == it1
+        Q1 = Q1.cpu().numpy()
+        s = np.sign(np.sum(Qb[k] * Q1, axis=-1, keepdims=True))
+        worst = max(worst, float(np.abs(Qb[k] - s * Q1).max()))
+    print(f"[solver] batched windows: {N_WINDOWS} windows (n 12-15, m_pad "
+          f"64, n_pad 16, f64) in {t_batch:.4f} s = "
+          f"{N_WINDOWS / t_batch:.1f} windows/s (median of 3 calls); IRLS "
+          f"iterations {int(itb.min())}-{int(itb.max())}; the per-window "
+          f"loop {sum(singles):.3f} s = {N_WINDOWS / sum(singles):.1f} "
+          f"windows/s; iterations equal {iters_equal}, max |dq| "
+          f"{worst:.3e}  ({card})")
+    if not iters_equal or worst >= 1e-9:
+        raise SmokeError(f"batched windows differ from the per-window solve "
+                         f"(iterations equal {iters_equal}, max |dq| {worst})")
+
+
+def phase_solver(card, out):
+    os.makedirs(out, exist_ok=True)
+    phase_golden(card, out)
+    phase_large(card)
+    phase_kitti_resolve(card)
+    phase_windows(card)
+
+
+# -- phase 6: checkpoint / resume ---------------------------------------------
+
+
+def phase_resume(card, out, seq, gt, yaml, full):
+    """Phase 3's sequence in two parts through the CLI: ``--max_frames``
+    half with ``--checkpoint``, then ``--resume``; the kept frames,
+    connections and poses must be phase 3's (``full``: its view graph and
+    output directory)."""
+    res = os.path.join(out, "out_resume")
+    base = ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
+            "--out_dir", res, "--device", "cuda", "--checkpoint"]
+    ck = os.path.join(res, "checkpoint.npz")
+    _, wall_a, la, gate_a, _ = run_cli(
+        base + ["--max_frames", str(RESUME_AT)], out, "irotavg_part1")
+    log, wall_b, lb, gate_b, vg = run_cli(
+        base + ["--max_frames", str(MAIN_FRAMES), "--resume", ck], out,
+        "irotavg_part2")
+    resumed = [ln for ln in log.splitlines() if ln.startswith("resumed at")]
+    vg3, res3 = full
+    with open(os.path.join(res, "rotavg_poses_ids.txt")) as fh:
+        ids = fh.read()
+    with open(os.path.join(res3, "rotavg_poses_ids.txt")) as fh:
+        ids3 = fh.read()
+    same_conn = set(vg.connections) == set(vg3.connections)
+    d = geo_deg(vg.ra.Q, vg3.ra.Q) if vg.ra.Q.shape == vg3.ra.Q.shape \
+        else np.array([np.inf])
+    bit_equal = np.array_equal(vg.ra.Q, vg3.ra.Q)
+    print(f"[resume] {resumed[0] if resumed else 'no resume line'}; part 1 "
+          f"{RESUME_AT} keyframes in {wall_a:.1f} s, part 2 to "
+          f"{MAIN_FRAMES} in {wall_b:.1f} s; match_best2 launches {la} + "
+          f"{lb}, by gate {json.dumps(gate_a)} + {json.dumps(gate_b)}  "
+          f"({card})")
+    print(f"[resume] keyframes {vg.num_views} (phase 3: {vg3.num_views}), "
+          f"ids equal {ids == ids3}, connections {len(vg.connections)} equal "
+          f"{same_conn}; poses max {np.radians(d.max()):.3e} rad from phase "
+          f"3's, bit-equal {bit_equal}  ({card})")
+    if not resumed or la <= 0 or lb <= 0:
+        raise SmokeError("the two-part run did not resume or never launched "
+                         "match_best2")
+    if ids != ids3 or not same_conn or not np.radians(d.max()) < 1e-9:
+        raise SmokeError("the resumed run differs from phase 3's "
+                         "uninterrupted run")
+    return la + lb, {"part1": gate_a, "part2": gate_b}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(HERE, "smoke_out"),
@@ -837,20 +1251,30 @@ def main(argv=None) -> int:
         print("chip_smoke: FAIL: irotavg_tpu_torch/ not found beside this "
               "script; run it from the root of a checkout", file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    seq = None
     try:
         card = phase_device()
         phase_build(card)
         kern = phase_kernels(card)
-        main_launches, main_by_gate = phase_main_path(card, args.out)
+        main_launches, main_by_gate, phase3 = phase_main_path(card, args.out)
+        seq = phase3[0]
         loop = phase_loop_closure(card, os.path.join(args.out, "loop"))
+        phase_solver(card, os.path.join(args.out, "solver"))
+        resume_launches, resume_by_gate = phase_resume(card, args.out,
+                                                       *phase3)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    kern["launches"] = main_launches + sum(n for n, _ in loop.values())
+    finally:
+        if seq is not None:    # the frames are regenerated from the seed
+            shutil.rmtree(seq)
+    kern["launches"] = (main_launches + sum(n for n, _ in loop.values())
+                        + resume_launches)
     kern["launches_by_gate"] = {
         "phase3": main_by_gate, "phase4_loop_closure": loop["A"][1],
-        "phase4_no_loop_closure": loop["B"][1]}
+        "phase4_no_loop_closure": loop["B"][1],
+        "phase6_resume": resume_by_gate}
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ src/IRotAvg.cpp:132-398).
     python -m irotavg_tpu_torch.app.irotavg VOCAB CONFIG SEQUENCE_PATH
         [--image_ext .png] [--timestamp_offset 0] [--gt FILE]
         [--max_frames N] [--out_dir DIR] [--no_loop_closure]
-        [--prefetch 0|1] [--device cuda|cpu]
+        [--checkpoint] [--resume SNAPSHOT] [--prefetch 0|1]
+        [--device cuda|cpu]
 
 ``VOCAB`` is a DBoW2 text vocabulary (ORB-SLAM's ``ORBvoc.txt`` format),
 or ``none`` to run without place recognition.  ``--device`` is ``cuda``
@@ -16,15 +17,18 @@ ViewGraph.process_frame (skip if not a keyframe) -> loop closure
 (candidates -> consistency -> BoW match + essential RANSAC + refine ->
 connect, min 150 inliers) -> optional GT ``fix_pose`` every 20 ids ->
 rot_avg(10), or a whole-graph solve after a new loop connection or a GT
-correction -> per-frame timing line.  Outputs ``rotavg_poses.txt`` and
-``rotavg_poses_ids.txt`` as the reference writes them.  The summary adds
-a ``loop_closure`` stage, the part of ``frame_processing`` spent in the
-loop-closure block.
+correction -> per-frame timing line -> every 5 ids the poses, the ids
+and (``--checkpoint``) a restartable ``checkpoint.npz`` snapshot in
+``--out_dir``.  Outputs ``rotavg_poses.txt`` and ``rotavg_poses_ids.txt``
+as the reference writes them.  ``--resume SNAPSHOT`` restores the engine
+from a snapshot (either package's; ``engine/checkpoint.py``) and goes on
+from its source-frame cursor.  The summary adds a ``loop_closure`` stage,
+the part of ``frame_processing`` spent in the loop-closure block.
 
-Limits of this port (see ROADMAP.md): ``--checkpoint``, ``--resume``,
-``--plot_matches`` and ``--trace_dir`` are not ported; frames are
-extracted one at a time (``--prefetch`` accepts 0 or 1 — the reference's
-batched look-ahead leaves every engine decision unchanged).
+Limits of this port (see ROADMAP.md): ``--plot_matches`` and
+``--trace_dir`` are not ported; frames are extracted one at a time
+(``--prefetch`` accepts 0 or 1 — the reference's batched look-ahead
+leaves every engine decision unchanged).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import argparse
 import os
 import sys
 
-NOT_PORTED = ("--checkpoint", "--resume", "--plot_matches", "--trace_dir")
+NOT_PORTED = ("--plot_matches", "--trace_dir")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,9 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="0/1: per-frame extraction (the only mode ported)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--checkpoint", action="store_true",
+                   help="write a restartable engine snapshot "
+                        "(checkpoint.npz in --out_dir) at each save point")
+    p.add_argument("--resume", default=None, metavar="SNAPSHOT",
+                   help="resume from a checkpoint.npz snapshot")
     p.add_argument("--trace_dir", default=None, help="not ported yet")
-    p.add_argument("--checkpoint", action="store_true", help="not ported yet")
-    p.add_argument("--resume", default=None, help="not ported yet")
     p.add_argument("--plot_matches", default=None, help="not ported yet")
     return p
 
@@ -83,6 +90,9 @@ def main(argv=None) -> int:
     from irotavg_tpu_torch import so3
     from irotavg_tpu_torch.config import PipelineConfig, load_settings
     from irotavg_tpu_torch.device import pick_device
+    from irotavg_tpu_torch.engine.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
     from irotavg_tpu_torch.engine.viewgraph import (
         FrameConnectionError, ViewGraph,
     )
@@ -141,25 +151,43 @@ def main(argv=None) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     poses_path = os.path.join(args.out_dir, "rotavg_poses.txt")
     ids_path = os.path.join(args.out_dir, "rotavg_poses_ids.txt")
-    selected_frames: list[int] = []
-    todo = [(count + 1, impath) for count, (_ts, impath) in enumerate(loader)
-            if count % cfg.sampling_step == 0]
-
-    im0 = load_gray(todo[0][1])
+    ckpt_path = os.path.join(args.out_dir, "checkpoint.npz")
+    im0 = load_gray(loader[0][1])
     camera = Camera(
         fx=cam_cfg.fx, fy=cam_cfg.fy, cx=cam_cfg.cx, cy=cam_cfg.cy,
         k1=cam_cfg.k1, k2=cam_cfg.k2, p1=cam_cfg.p1, p2=cam_cfg.p2,
         width=im0.shape[1], height=im0.shape[0])
-    vg = ViewGraph(camera, min_matches=cfg.vg_min_matches, device=device)
+
+    frame_id = 0
+    skip_until = 0          # 1-based count of the last frame already seen
+    selected_frames: list[int] = []
+    if args.resume is not None:
+        vg, extra = load_checkpoint(args.resume, camera, device=device)
+        skip_until = int(extra["count"])
+        frame_id = int(extra["frame_id"])
+        selected_frames = [int(v) for v in extra["selected_frames"]]
+        print(f"resumed at source frame {skip_until} "
+              f"({vg.num_views} keyframes)")
+    else:
+        vg = ViewGraph(camera, min_matches=cfg.vg_min_matches, device=device)
+    todo = [(count + 1, impath) for count, (_ts, impath) in enumerate(loader)
+            if count >= skip_until and count % cfg.sampling_step == 0]
+    count = skip_until      # the resume cursor written into checkpoints
+
+    def checkpoint(count1, next_id):
+        if args.checkpoint:
+            save_checkpoint(vg, ckpt_path, extra={
+                "count": count1, "frame_id": next_id,
+                "selected_frames": selected_frames})
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    frame_id = 0
     for count1, impath in todo:
         if args.max_frames is not None and frame_id >= args.max_frames:
             break
+        count = count1
         with timer.stage("frame_creation"):
             frame = Frame(frame_id, load_gray(impath), extractor, camera,
                           vocab=vocab)
@@ -203,10 +231,12 @@ def main(argv=None) -> int:
         if frame_id % cfg.save_every == 0:
             vg.save_poses(poses_path)
             _save_ids(ids_path, selected_frames)
+            checkpoint(count1, frame_id + 1)
         frame_id += 1
 
     vg.save_poses(poses_path)
     _save_ids(ids_path, selected_frames)
+    checkpoint(count, frame_id)
     for name, s in timer.summary().items():
         print(f"{name}: total {s['total_s']:.3f}s over {s['count']} "
               f"frames (mean {s['mean_s'] * 1e3:.1f} ms)")

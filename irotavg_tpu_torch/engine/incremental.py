@@ -9,14 +9,18 @@ by :meth:`IncrementalRotAvg.fix_pose`) first, warm-start from the current
 estimates, run L1-RA then IRLS (Geman-McClure), and write back the
 normalised free rotations.
 
-Differences from the reference, all deliberate:
+A window whose power-of-two node bucket exceeds ``dense_n_max`` (the
+quasi-global re-solve after a loop closure, ``rotAvg(5e6)``,
+src/IRotAvg.cpp:371-378) is solved with the matrix-free CG backend, as in
+the reference; smaller ones factorise the dense Laplacian.
+
+Differences from the reference, both deliberate:
 
 * the solve runs in f64 at every size (the reference drops to f32 for
-  large solves because f64 is emulated on a TPU);
+  large solves because f64 is emulated on a TPU), so CG's tolerance is
+  the reference's f64 one, 1e-10;
 * no padding buckets: eager PyTorch does not recompile per shape, and the
-  reference's padding is masked out of every reduction;
-* a window whose power-of-two node bucket exceeds ``DENSE_N_MAX`` raises
-  ``NotImplementedError`` — the matrix-free CG backend is not ported yet.
+  reference's padding is masked out of every reduction.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from irotavg_tpu_torch.solver.graph import RotationGraph
 from irotavg_tpu_torch.solver.irls import Cost, IRLSConfig, irls
 from irotavg_tpu_torch.solver.l1ra import L1RAConfig, l1ra
 
-DENSE_N_MAX = 2048   # largest node bucket the dense Cholesky solve takes
+DENSE_N_MAX = 2048   # default largest node bucket of the dense solve
+CG_TOL = 1e-10       # the reference's CG tolerance for f64 solves
 
 
 def _bucket(x: int, lo: int = 32) -> int:
@@ -44,12 +49,14 @@ def _bucket(x: int, lo: int = 32) -> int:
 
 
 def _window_solve(edges, QQ, Q, f, *, l1_iters, irls_iters, sigma,
-                  change_th, cost):
+                  change_th, cost, backend="dense"):
     """L1-RA + IRLS on one window; returns (Q, weights, iters, score)."""
     g = RotationGraph.create(edges, QQ, Q, f=f)
-    Q1, _, _ = l1ra(g, L1RAConfig(max_iters=l1_iters, change_th=change_th))
+    Q1, _, _ = l1ra(g, L1RAConfig(max_iters=l1_iters, change_th=change_th,
+                                  backend=backend, cg_tol=CG_TOL))
     irls_cfg = IRLSConfig(cost=Cost.parse(cost), sigma=sigma,
-                          max_iters=irls_iters, change_th=change_th)
+                          max_iters=irls_iters, change_th=change_th,
+                          backend=backend, cg_tol=CG_TOL)
     g = RotationGraph.create(edges, QQ, Q1, f=f)
     Q2, w, iters, score = irls(g, irls_cfg)
     return so3.qnormalize(Q2), w, iters, score
@@ -60,11 +67,13 @@ class IncrementalRotAvg:
 
     Host state (numpy): ``Q`` (n, 4) f64 ``[x y z w]`` rows, ``fixed``,
     ``edges`` (m, 2), ``QQ`` (m, 4).  The windowed solve runs on
-    ``device``.
+    ``device``; a window whose node bucket exceeds ``dense_n_max`` is
+    solved with matrix-free CG instead of a dense Cholesky.
     """
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, dense_n_max: int = DENSE_N_MAX):
         self.device = pick_device(device)
+        self.dense_n_max = int(dense_n_max)
         self.dtype = np.float64
         self._Q = np.zeros((0, 4), self.dtype)
         self.fixed = np.zeros((0,), bool)
@@ -173,19 +182,15 @@ class IncrementalRotAvg:
             f = 1
         m, n = len(edge_ids), len(order)
         n_pad = _bucket(n)
-        if n_pad > DENSE_N_MAX:
-            raise NotImplementedError(
-                f"window of {n} views (bucket {n_pad}) exceeds DENSE_N_MAX="
-                f"{DENSE_N_MAX}: the matrix-free CG solve is not ported "
-                "yet (ROADMAP.md, Queue 1)")
+        backend = "cg" if n_pad > self.dense_n_max else "dense"
         dev = self.device
         Q_out, w, iters, score = _window_solve(
             torch.as_tensor(new_idx[sub_edges], device=dev),
             torch.as_tensor(self.QQ[edge_ids], dtype=SOLVER_DTYPE, device=dev),
             torch.as_tensor(Q_sub, dtype=SOLVER_DTYPE, device=dev), f,
             l1_iters=l1_iters, irls_iters=irls_iters, sigma=float(sigma),
-            change_th=float(change_th), cost=cost)
-        stats = {"m": m, "n": n, "f": f, "n_pad": n_pad,
+            change_th=float(change_th), cost=cost, backend=backend)
+        stats = {"m": m, "n": n, "f": f, "n_pad": n_pad, "backend": backend,
                  "solve_dtype": "float64", "solved_views": order[f:],
                  "irls_iters": iters, "score": score}
         if lazy:

@@ -15,11 +15,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from irotavg_tpu_torch.device import pick_device
 from irotavg_tpu_torch.frontend.camera import Camera
 
 # feature tensors, in extractor-output order (+ undistorted coordinates)
 FIELDS = ("x", "y", "octave", "angle", "response", "size", "desc", "valid")
 _LAZY = FIELDS + ("xu", "yu")
+# device dtypes of the feature tensors (``desc``: int32 bit patterns)
+_DTYPES = {"x": torch.float32, "y": torch.float32, "xu": torch.float32,
+           "yu": torch.float32, "octave": torch.int32,
+           "angle": torch.float32, "response": torch.float32,
+           "size": torch.float32, "desc": torch.int32, "valid": torch.bool}
 
 
 class Frame:
@@ -54,6 +60,29 @@ class Frame:
         self._attach(out, camera)
         if bow_nid is not None:
             self._set_bow(*bow_nid)
+        return self
+
+    @classmethod
+    def restore(cls, frame_id: int, camera: Camera, arrays: dict, bow=None,
+                feat_nodes=None, device=None) -> "Frame":
+        """Rebuild a Frame from checkpointed host arrays without
+        re-extraction: ``arrays`` holds x, y, xu, yu, octave, angle,
+        response, size, desc ((N, 8) words, uint32 or int32), valid and
+        optionally cell.  The feature tensors go onto ``device`` (the card
+        unless ``device="cpu"``); the host mirrors are the given arrays."""
+        dev = pick_device(device)
+        self = cls.__new__(cls)
+        self.id = frame_id
+        self.camera = camera
+        self._host = {k: np.array(v) for k, v in arrays.items()}
+        self._host["desc"] = np.ascontiguousarray(
+            self._host["desc"]).view(np.int32)
+        self._device = {k: torch.as_tensor(self._host[k], dtype=_DTYPES[k],
+                                           device=dev) for k in _LAZY}
+        self.bow = bow
+        self.feat_nodes = None
+        if feat_nodes is not None:
+            self._set_bow(bow, feat_nodes)
         return self
 
     def _attach(self, out: dict, camera: Camera) -> None:
@@ -93,6 +122,10 @@ class Frame:
             raise AttributeError(name)
         if name in _LAZY:
             return self._fetch_host()[name]
+        if name == "cell":
+            cell = np.stack(self.camera.grid_cell(self.xu, self.yu), axis=1)
+            self._fetch_host()["cell"] = cell
+            return cell
         raise AttributeError(
             f"{type(self).__name__!r} object has no attribute {name!r}")
 

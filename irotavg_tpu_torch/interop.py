@@ -11,33 +11,23 @@ import ast
 import os
 
 import numpy as np
-import torch
 
-from irotavg_tpu_torch.device import pick_device
 
 FRAME_FIELDS = ("x", "y", "xu", "yu", "octave", "angle", "response", "size",
                 "desc", "valid")
-_DTYPES = {"x": torch.float32, "y": torch.float32, "xu": torch.float32,
-           "yu": torch.float32, "octave": torch.int32,
-           "angle": torch.float32, "response": torch.float32,
-           "size": torch.float32, "valid": torch.bool}
 
 
 def frame_from_arrays(d: dict, camera, device=None, bow=None,
                       feat_nodes=None):
     """A port ``Frame`` from a reference Frame's host arrays (the fields
     ``x y xu yu octave angle response size desc valid``; ``desc`` as
-    (N, 8) uint32 words, carried as int32 bit patterns), with the
-    reference's ``bow`` dict and ``feat_nodes`` when given."""
+    (N, 8) uint32 words, carried as int32 bit patterns), with a copy of
+    the reference's ``bow`` dict and ``feat_nodes`` when given."""
     from irotavg_tpu_torch.frontend.frame import Frame
 
-    dev = pick_device(device)
-    out = {k: torch.as_tensor(np.array(d[k]), dtype=_DTYPES[k], device=dev)
-           for k in FRAME_FIELDS if k != "desc"}
-    desc = np.ascontiguousarray(np.asarray(d["desc"]).astype(np.uint32))
-    out["desc"] = torch.from_numpy(desc.view(np.int32).copy()).to(dev)
-    bow_nid = None if feat_nodes is None else (dict(bow or {}), feat_nodes)
-    return Frame.from_tensors(0, out, camera, bow_nid=bow_nid)
+    return Frame.restore(0, camera, {k: d[k] for k in FRAME_FIELDS},
+                         bow=None if feat_nodes is None else dict(bow or {}),
+                         feat_nodes=feat_nodes, device=device)
 
 
 def vocabulary_from_arrays(k, L, children, node_desc, weight, word_id,

@@ -87,10 +87,19 @@ def log_map(q):
     return torch.cat([xyz * scale[..., None], theta[..., None]], dim=-1)
 
 
+def take_rows(x, idx):
+    """Rows ``x[idx]`` of ``x (n, k)``; with leading batch dims, the rows
+    of each ``x[b] (n, k)`` at ``idx[b] (m,)``."""
+    if x.dim() == 2:
+        return x[idx]
+    idx = idx.expand(*x.shape[:-2], idx.shape[-1])
+    return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
 def delta_rel(edges, QQ, Q):
-    """Per-edge residual ``qinv(Q[j]) * QQ[k] * Q[i]``."""
-    qi = Q[edges[:, 0]]
-    qj_inv = qinv_flipw(Q[edges[:, 1]])
+    """Per-edge residual ``qinv(Q[j]) * QQ[k] * Q[i]`` (batch dims lead)."""
+    qi = take_rows(Q, edges[..., 0])
+    qj_inv = qinv_flipw(take_rows(Q, edges[..., 1]))
     return qmul(qj_inv, qmul(QQ, qi))
 
 

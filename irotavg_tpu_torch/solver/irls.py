@@ -2,10 +2,12 @@
 
 Per iteration: per-edge residual -> tangent space; weighted least squares
 for the three tangent axes at once on the masked graph Laplacian (dense
-Cholesky); robust re-weighting with one of the 14 costs (the clamps of
+Cholesky, or matrix-free Jacobi-CG with ``backend="cg"``); robust
+re-weighting with one of the 14 costs (the clamps of
 ral/l1_irls.cpp:617-727); right-multiplied retraction; stop when the mean
 free-node update norm is <= ``change_th``.  The ``lax.while_loop`` of the
-reference is a Python loop that reads the score back each iteration.
+reference is a Python loop that reads the stopping test back each
+iteration.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from irotavg_tpu_torch import so3
 from irotavg_tpu_torch.solver.graph import (
-    RotationGraph, incidence_matvec, incidence_rmatvec, laplacian_cho_solve,
+    RotationGraph, incidence_matvec, incidence_rmatvec, laplacian_cg_solve,
+    laplacian_cho_solve,
 )
 
 
@@ -114,32 +117,50 @@ class IRLSConfig:
     sigma: float = 5.0 * math.pi / 180.0  # radians (reference default 5 deg)
     max_iters: int = 50
     change_th: float = 1e-3
+    backend: str = "dense"  # "dense" (Cholesky) or "cg" (matrix-free)
     ridge: float = 0.0
+    cg_tol: float = 1e-10
+    cg_maxiter: int = 1000
+
+
+def _solve_wls(g: RotationGraph, coef, rhs, cfg: IRLSConfig):
+    """Solve ``(A' diag(coef) A) X = rhs`` over free nodes; X=0 on fixed."""
+    free = g.free_mask()
+    if cfg.backend == "dense":
+        X = laplacian_cho_solve(g.edges, coef, rhs, free, g.edge_mask, g.n,
+                                ridge=cfg.ridge)
+        return torch.where(free[..., None], X, torch.zeros_like(X))
+    if cfg.backend == "cg":
+        X, _ = laplacian_cg_solve(g.edges, coef, rhs, free, g.edge_mask,
+                                  tol=cfg.cg_tol, maxiter=cfg.cg_maxiter)
+        return X
+    raise ValueError(f"Unknown backend {cfg.backend!r}")
+
+
+def free_mean(X, free):
+    """Mean row norm of ``X (*B, n, 3)`` over the free nodes (per batch
+    entry): the outer loops' update score."""
+    norms = torch.linalg.vector_norm(X, dim=-1)
+    n_free = free.sum(-1).clamp(min=1)
+    return torch.where(free, norms, torch.zeros_like(norms)).sum(-1) / n_free
 
 
 def irls_step(g: RotationGraph, weights, cfg: IRLSConfig):
     """One IRLS iteration. Returns (new_Q, new_weights, score tensor)."""
     free = g.free_mask()
-    w3 = so3.log_map(so3.delta_rel(g.edges, g.QQ, g.Q))[:, :3]
-    w3 = torch.where(g.edge_mask[:, None], w3, torch.zeros_like(w3))
+    w3 = so3.log_map(so3.delta_rel(g.edges, g.QQ, g.Q))[..., :3]
+    w3 = torch.where(g.edge_mask[..., None], w3, torch.zeros_like(w3))
 
     wsq = weights * weights
     coef = torch.where(g.edge_mask, wsq, torch.zeros_like(wsq))
-    rhs = incidence_rmatvec(g.edges, wsq[:, None] * w3, free, g.edge_mask,
+    rhs = incidence_rmatvec(g.edges, wsq[..., None] * w3, free, g.edge_mask,
                             g.n)
-    X = laplacian_cho_solve(g.edges, coef, rhs, free, g.edge_mask, g.n,
-                            ridge=cfg.ridge)
-    X = torch.where(free[:, None], X, torch.zeros_like(X))
+    X = _solve_wls(g, coef, rhs, cfg)
 
     E = incidence_matvec(g.edges, X, free, g.edge_mask) - w3
     new_weights = update_weights(cfg.cost, E, weights, cfg.sigma)
-
-    norms = torch.linalg.vector_norm(X, dim=-1)
-    n_free = max(int(free.sum()), 1)
-    score = torch.where(free, norms, torch.zeros_like(norms)).sum() / n_free
-
     new_Q = so3.qmul(g.Q, so3.exp_map(X))
-    return new_Q, new_weights, score
+    return new_Q, new_weights, free_mean(X, free)
 
 
 def irls(g: RotationGraph, cfg: IRLSConfig = IRLSConfig(), weights=None):
@@ -147,15 +168,26 @@ def irls(g: RotationGraph, cfg: IRLSConfig = IRLSConfig(), weights=None):
 
     Weights start at ones (ral/l1_irls.cpp:577); the loop runs while the
     mean free-node update norm is > ``change_th`` and ``iters <
-    max_iters``.
+    max_iters``.  A batch of windows (leading dims on ``g``) runs until its
+    last window stops; a stopped window is frozen and keeps its own count,
+    as under the reference's ``vmap``, and ``iters``/``score`` are then
+    tensors.  The host reads the stopping test once per iteration.
     """
+    batch = g.edges.shape[:-2]
+    dev = g.Q.device
     if weights is None:
-        weights = torch.ones(g.m, dtype=g.dtype, device=g.Q.device)
+        weights = torch.ones(g.edges.shape[:-1], dtype=g.dtype, device=dev)
     Q = g.Q
-    score = math.inf
-    it = 0
-    while score > cfg.change_th and it < cfg.max_iters:
-        Q, weights, s = irls_step(dataclasses.replace(g, Q=Q), weights, cfg)
-        score = float(s)
-        it += 1
-    return Q, weights, it, score
+    score = torch.full(batch, math.inf, dtype=g.dtype, device=dev)
+    it = torch.zeros(batch, dtype=torch.int64, device=dev)
+    active = (score > cfg.change_th) & (it < cfg.max_iters)
+    while bool(active.any()):
+        Q2, w2, s2 = irls_step(dataclasses.replace(g, Q=Q), weights, cfg)
+        Q = torch.where(active[..., None, None], Q2, Q)
+        weights = torch.where(active[..., None], w2, weights)
+        score = torch.where(active, s2, score)
+        it = it + active
+        active = (score > cfg.change_th) & (it < cfg.max_iters)
+    if batch:
+        return Q, weights, it, score
+    return Q, weights, int(it), float(score)

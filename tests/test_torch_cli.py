@@ -1,6 +1,7 @@
 """The port's ``irotavg`` CLI, in-process, on PGM frames: the output
 contract of test_app.py:147-155 without and with a vocabulary, the
-not-ported options, the device policy (the card unless ``--device cpu``)
+not-ported options (``--checkpoint``/``--resume`` run, in
+test_torch_checkpoint.py), the device policy (the card unless ``--device cpu``)
 and the matcher's CPU dispatch."""
 
 import numpy as np
@@ -107,7 +108,6 @@ def test_cli_with_vocabulary(tmp_path, sequence, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["none", "--checkpoint"], ["none", "--resume", "x"],
     ["none", "--plot_matches", "d"], ["none", "--trace_dir", "d"],
 ])
 def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys):

@@ -216,15 +216,22 @@ def test_incremental_skip_rules_and_lazy():
 
 
 def test_incremental_window_above_dense_bound_raises():
-    """A window too large for the dense solve names the missing CG
-    backend instead of running it."""
+    """A window above the dense bound no longer raises: it is solved with
+    the matrix-free CG backend (agreement with the dense path and the
+    reference is held by test_torch_cg.py)."""
     from irotavg_tpu_torch.engine.incremental import DENSE_N_MAX
 
     n = DENSE_N_MAX + 2
-    edges = np.stack([np.arange(n - 2), np.arange(2, n)], axis=1)
-    edges = np.concatenate([edges, [[0, 1], [1, 2]]])   # n edges >= window
-    eng = interop.incremental_from_arrays(
-        np.tile([0.0, 0.0, 0.0, 1.0], (n, 1)), np.zeros(n, bool), edges,
-        np.tile([0.0, 0.0, 0.0, 1.0], (len(edges), 1)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.rot_avg(n)
+    rng = np.random.default_rng(9)
+    R = Rsc.from_rotvec(np.cumsum(rng.normal(scale=0.05, size=(n, 3)), 0))
+    edges = np.concatenate([np.stack([np.arange(n - d), np.arange(d, n)], 1)
+                            for d in (1, 2)])
+    noise = Rsc.from_rotvec(rng.normal(scale=0.01, size=(len(edges), 3)))
+    QQ = (noise * R[edges[:, 1]] * R[edges[:, 0]].inv()).as_quat()
+    Q0 = (Rsc.from_rotvec(rng.normal(scale=0.02, size=(n, 3))) * R).as_quat()
+    eng = interop.incremental_from_arrays(Q0, np.zeros(n, bool), edges, QQ,
+                                          device="cpu")
+    stats = eng.rot_avg(n, l1_iters=1, irls_iters=2)
+    assert stats["backend"] == "cg" and stats["n_pad"] == 2 * DENSE_N_MAX
+    assert np.all(np.isfinite(eng.Q))
+    assert not np.array_equal(eng.Q[1:], Q0[1:])
