@@ -22,14 +22,21 @@ prints no result line):
    bound (``ops/match.py:bound_ms``), the plain version's time and
    ``library_ms``: one ``torch.matmul`` of the ±1 bf16 expansions, which
    gives the distances only (no gate, no top-2) and is never called by
-   the port.
+   the port.  Also at the offline pipeline's shape: 8 pairs, each lane
+   with its own column frame, under ``local`` and ``epipolar_nonode``.
 3. main path — renders the first 150 frames of a one-lap synthetic
    KITTI-sized sequence (1241x376, KITTI 00 intrinsics, 300 frames a lap)
    with numpy, writes them as PGM with a GT file and an ORB-SLAM YAML
    (2000 features), runs the port's ``irotavg`` CLI on them with
-   ``VOCAB=none``, ``--device cuda`` and GT pins every 20 frames, launch
-   counters reset just before, and checks the kernel counts, the output
-   files and the rotation RMSE against GT.
+   ``VOCAB=none``, ``--device cuda``, the default ``--prefetch 8`` and GT
+   pins every 20 frames, launch counters reset just before, and checks
+   the kernel counts, the output files and the rotation RMSE against GT,
+   and that keyframes, launches by gate and RMSE are those of per-frame
+   extraction (``PER_FRAME_PHASE3``).  Then the prefetch check: the first
+   16 frames through ``FramePrefetcher(batch=8)`` against ``Frame`` built
+   one at a time, without and with the vocabulary (desc, valid, octave,
+   x, y equal, angle within 1e-5, BoW and node ids equal), and the
+   extraction ms per frame batched and one at a time (CUDA events).
 4. loop closure — renders a one-way orbit of two laps (241 frames, the
    orbit shrinking by 1 m, so lap 2 revisits lap 1 from a slightly
    different pose) at the same size, decompresses the repo's k=10, L=5
@@ -53,9 +60,18 @@ prints no result line):
    windows through ``solve_windows`` against the per-window engine
    solve: equal iteration counts, quaternions within 1e-9, windows/s.
 6. checkpoint/resume — phase 3's sequence through the CLI in two parts
-   (75 keyframes with ``--checkpoint``, then ``--resume`` to 150): the
-   same keyframe ids and connections as phase 3, poses within 1e-9 rad
-   (bit-equality printed), the matcher launched in both parts.
+   (75 keyframes with ``--checkpoint`` and ``--prefetch 1``, then
+   ``--resume`` to 150): the same keyframe ids and connections as phase
+   3's batched extraction, poses within 1e-9 rad (bit-equality printed),
+   the matcher launched in both parts.
+7. offline — the port's ``irotavg_batch`` CLI (``--device cuda``) on
+   phase 4's frames with phase 4's vocabulary, launch counters reset just
+   before: keyframes, edges, loop edges and their keyframe spans, stage
+   seconds, frames/s, launches by gate, rotation RMSE against GT.  Fails
+   unless it succeeds, launches the matcher under ``local`` and
+   ``epipolar_nonode``, its RMSE is finite and at most 1.5x the JAX
+   package's on the same frames, it makes a loop edge spanning more than
+   10 keyframes, and 2 * its RMSE < phase 4's RMSE_B.
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -81,6 +97,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # main-path shapes of the matcher: 2000 ORB features, K = 3 window
 # candidates (vg_win_size - 1), plus a ragged case
 MATCH_SHAPES = ((1, 2000, 2000), (3, 2000, 2000), (1, 1999, 2001))
+# the offline pipeline's shape: a chunk of 8 pairs, each lane with its own
+# column frame, under the gates its flow, pair match and refine use
+OFFLINE_SHAPE = (8, 2000, 2000)
+OFFLINE_GATES = ("local", "epipolar_nonode")
 # frame size and intrinsics of KITTI odometry sequence 00
 # (ORB-SLAM2 Examples/Monocular/KITTI00-02.yaml)
 KITTI_W, KITTI_H = 1241, 376
@@ -120,6 +140,23 @@ KITTI_TOL_DEG = 1e-6          # CG vs dense engine solve, both f64
 N_WINDOWS = 384               # bench.py:500's batch of windows
 # phase 6: phase 3's run cut after this many keyframes, then resumed
 RESUME_AT = 75
+# phase 3's outputs with per-frame extraction (``--prefetch 1``) on an
+# NVIDIA H100 80GB HBM3: the batched extraction must give the same
+PER_FRAME_PHASE3 = {"keyframes": 150, "rmse": "0.4970",
+                    "by_gate": {"none": 0, "node": 0, "local": 149,
+                                "epipolar": 0, "epipolar_nonode": 1381}}
+# the prefetch check: frames, batch width, angle tolerance (rad)
+PREFETCH_FRAMES = 16
+PREFETCH_BATCH = 8
+PREFETCH_ANGLE_TOL = 1e-5
+# phase 7: the JAX package's offline rotation RMSE (deg) on phase 4's
+# frames with phase 4's vocabulary, computed once on a CPU through the
+# JAX ``irotavg_batch`` CLI (default settings: 241 keyframes, 1091
+# edges, 137 loop edges spanning 117-123 keyframes); the port may reach
+# at most OFFLINE_RMSE_FACTOR times it
+JAX_OFFLINE_RMSE_DEG = 1.2757557007946743
+JAX_OFFLINE_LOOP_EDGES = 137
+OFFLINE_RMSE_FACTOR = 1.5
 
 
 class SmokeError(RuntimeError):
@@ -434,9 +471,12 @@ def phase_kernels(card):
     gen = make_generator(7, dev)
     max_err = 0.0
     timed = {}
-    for B, n1, n2 in MATCH_SHAPES:
+    cases = [(shape, match.GATES) for shape in MATCH_SHAPES]
+    cases.append((OFFLINE_SHAPE, OFFLINE_GATES))
+    for (B, n1, n2), gates in cases:
         lib_ms = None
-        for gate in match.GATES:
+        for gate in gates:
+            # a column frame per lane (distinct words and features)
             args = _match_inputs(torch, B, n1, n2, gate, gen, dev)
             got = match.best2(*args, gate)
             ref = match.best2_plain(*args, gate)
@@ -486,16 +526,21 @@ def phase_kernels(card):
               f"(B={B}, N1={n1}, N2={case['desc2'].shape[-2]}): equal, "
               f"rows matched {int((ref[0] < match.BIG).sum())}")
     print(f"[kernel] match_best2 exactly equal to best2_plain in "
-          f"{len(timed)} main-shape cases and {n_adv} adversarial cases  "
-          f"({card})")
+          f"{len(timed)} main-shape and offline-shape cases and {n_adv} "
+          f"adversarial cases  ({card})")
     main = timed[(3, 2000, 2000, "epipolar_nonode")]
+    B8 = OFFLINE_SHAPE
     return {"name": "match_best2", "route": "cuda",
             "source": "irotavg_tpu_torch/csrc/match_best2.cu",
             "replaces": "irotavg_tpu/ops/match_pallas.py:80",
             "max_abs_err": max_err, **main,
             "cases": {"B3_2000x2000_epipolar_nonode": main,
                       "B1_2000x2000_epipolar":
-                          timed[(1, 2000, 2000, "epipolar")]}}
+                          timed[(1, 2000, 2000, "epipolar")],
+                      "B8_2000x2000_local_per_lane":
+                          timed[B8 + ("local",)],
+                      "B8_2000x2000_epipolar_nonode_per_lane":
+                          timed[B8 + ("epipolar_nonode",)]}}
 
 
 # -- phase 3: the synthetic KITTI-sized sequence and the CLI ------------------
@@ -676,16 +721,37 @@ def rotation_rmse_deg(poses_path, ids_path, R_gt):
     return float(np.sqrt(np.mean(err ** 2))), len(ids)
 
 
-def run_cli(argv, out, name):
-    """The port's CLI in-process, stdout to ``out/name.log``, with the
+def _run_logged(main_fn, argv, out, name):
+    """``main_fn(argv)`` in-process, stdout to ``out/name.log``, with the
     matcher's launch counters set to 0 just before and read just after.
-    Returns (log, wall seconds, launches, launches by gate, the run's view
-    graph); raises when the CLI returns non-zero."""
+    Returns (log, wall seconds, launches, launches by gate); raises when
+    it returns non-zero."""
     import contextlib
 
+    from irotavg_tpu_torch.ops import match
+
+    log_path = os.path.join(out, f"{name}.log")
+    with open(log_path, "w", buffering=1) as fh:           # line-buffered
+        match.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(fh):
+            rc = main_fn(argv)
+        wall = time.perf_counter() - t0
+        launches = match.best2.launches
+        by_gate = dict(match.best2.launches_by_gate)
+    with open(log_path) as fh:
+        log = fh.read()
+    if rc != 0:
+        raise SmokeError(f"{name} returned {rc}; log tail:\n" + log[-2000:])
+    return log, wall, launches, by_gate
+
+
+def run_cli(argv, out, name):
+    """The port's ``irotavg`` CLI through :func:`_run_logged`.  Returns
+    (log, wall seconds, launches, launches by gate, the run's view
+    graph)."""
     from irotavg_tpu_torch.app import irotavg
     from irotavg_tpu_torch.engine.viewgraph import ViewGraph
-    from irotavg_tpu_torch.ops import match
 
     graphs = []
     process_frame = ViewGraph.process_frame
@@ -694,25 +760,12 @@ def run_cli(argv, out, name):
         graphs[:] = [self]
         return process_frame(self, *a, **kw)
 
-    log_path = os.path.join(out, f"{name}.log")
-    with open(log_path, "w", buffering=1) as fh:           # line-buffered
-        ViewGraph.process_frame = recording
-        match.reset_launch_counts()
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(fh):
-                rc = irotavg.main(argv)
-        finally:
-            ViewGraph.process_frame = process_frame
-        wall = time.perf_counter() - t0
-        launches = match.best2.launches
-        by_gate = dict(match.best2.launches_by_gate)
-    with open(log_path) as fh:
-        log = fh.read()
-    if rc != 0:
-        raise SmokeError(f"irotavg CLI ({name}) returned {rc}; log tail:\n"
-                         + log[-2000:])
-    return log, wall, launches, by_gate, graphs[0] if graphs else None
+    ViewGraph.process_frame = recording
+    try:
+        run = _run_logged(irotavg.main, argv, out, name)
+    finally:
+        ViewGraph.process_frame = process_frame
+    return run + (graphs[0] if graphs else None,)
 
 
 def _stage_lines(tag, log, card):
@@ -759,7 +812,71 @@ def phase_main_path(card, out):
     if not np.isfinite(rmse) or rmse >= RMSE_BOUND_DEG:
         raise SmokeError(f"rotation RMSE {rmse} deg is not under "
                          f"{RMSE_BOUND_DEG}")
+    want = PER_FRAME_PHASE3
+    same = (n_key == want["keyframes"] and by_gate == want["by_gate"]
+            and f"{rmse:.4f}" == want["rmse"])
+    print(f"[main] batched extraction (--prefetch 8) gives per-frame "
+          f"extraction's keyframes, launches by gate and RMSE: {same}  "
+          f"({card})")
+    if not same:
+        raise SmokeError(f"phase 3 with --prefetch 8 differs from "
+                         f"per-frame extraction's {want}")
     return launches, by_gate, (seq, gt, yaml, (vg, res))
+
+
+def phase_prefetch(card, seq, vocab_path):
+    """The first frames of phase 3's sequence through ``FramePrefetcher``
+    against ``Frame`` built one at a time, without and with the
+    vocabulary; extraction ms per frame, batched and one at a time."""
+    import torch
+
+    from irotavg_tpu_torch.frontend.camera import Camera
+    from irotavg_tpu_torch.frontend.frame import Frame
+    from irotavg_tpu_torch.frontend.orb import ORBExtractor
+    from irotavg_tpu_torch.frontend.prefetch import FramePrefetcher
+    from irotavg_tpu_torch.placerec.vocabulary import Vocabulary
+    from irotavg_tpu_torch.utils.sequence import load_gray
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    names = sorted(os.listdir(seq))[:PREFETCH_FRAMES]
+    imgs = [load_gray(os.path.join(seq, n)) for n in names]
+    fx, fy, cx, cy = KITTI_K
+    cam = Camera(fx=fx, fy=fy, cx=cx, cy=cy, width=KITTI_W, height=KITTI_H)
+    ext = ORBExtractor(n_features=2000, n_levels=8, device=dev)
+    vocab = Vocabulary.load_text(vocab_path, device=dev)
+    worst, angle_equal, words = 0.0, True, 0
+    for voc in (None, vocab):
+        pf = FramePrefetcher(imgs, ext, cam, batch=PREFETCH_BATCH, vocab=voc)
+        for i, im in enumerate(imgs):
+            got, want = pf.frame(i), Frame(i, im, ext, cam, vocab=voc)
+            for k in ("desc", "valid", "octave", "x", "y"):
+                if not np.array_equal(getattr(got, k), getattr(want, k)):
+                    raise SmokeError(f"prefetch: frame {i} {k} differs from "
+                                     f"per-frame extraction (vocabulary "
+                                     f"{voc is not None})")
+            worst = max(worst, float(np.abs(got.angle - want.angle).max()))
+            angle_equal &= bool(np.array_equal(got.angle, want.angle))
+            if voc is not None:
+                if got.bow != want.bow or not np.array_equal(
+                        got.feat_nodes, want.feat_nodes):
+                    raise SmokeError(f"prefetch: frame {i} BoW or node ids "
+                                     f"differ from the per-frame transform")
+                words += len(got.bow)
+    if not worst <= PREFETCH_ANGLE_TOL:
+        raise SmokeError(f"prefetch: angles differ by {worst} rad")
+    batch = torch.from_numpy(np.stack(imgs[:PREFETCH_BATCH])).to(dev)
+    batched_ms = _median_ms(torch, lambda: ext.extract_batch(batch),
+                            reps=5) / PREFETCH_BATCH
+    one_ms = _median_ms(torch, lambda: ext(batch[0]), reps=5)
+    print(f"[prefetch] {PREFETCH_FRAMES} frames through FramePrefetcher("
+          f"batch={PREFETCH_BATCH}) equal to per-frame Frames without and "
+          f"with the vocabulary (desc, valid, octave, x, y, BoW over "
+          f"{words} words, node ids); angles max |d| {worst:.3e} rad, "
+          f"bit-equal {angle_equal}  ({card})")
+    print(f"[prefetch] extraction {batched_ms:.3f} ms a frame batched "
+          f"(B={PREFETCH_BATCH}) against {one_ms:.3f} ms one at a time "
+          f"(median of 5, CUDA events, images on the device)  ({card})")
+    return {"batched_ms_per_frame": batched_ms, "per_frame_ms": one_ms}
 
 
 # -- phase 4: place recognition and loop closure ------------------------------
@@ -798,35 +915,40 @@ def _vocab_timings(card, vocab_path, seq):
           f"{statistics.median(times):.4f} ms ({len(bow)} words)  ({card})")
 
 
-def phase_loop_closure(card, out):
+def vocab_file(out):
+    """The repo's k=10, L=5 DBoW2 vocabulary, decompressed into ``out``."""
     import gzip
 
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "vocab.txt")
+    with gzip.open(VOCAB_FIXTURE, "rb") as src, open(path, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    return path
+
+
+def phase_loop_closure(card, out, vocab):
+    """Runs A and B on the two-lap orbit.  Returns (launches and launches
+    by gate per run, the frames' directory, the YAML, the GT rotations,
+    run B's RMSE); the caller removes the frames."""
     n_frames = LOOP_FRAMES
     t0 = time.perf_counter()
     seq, _gt, yaml, R_gt = write_sequence(out, n_frames, laps=2.0,
                                           spiral=LOOP_SPIRAL)
-    vocab = os.path.join(out, "vocab.txt")
-    with gzip.open(VOCAB_FIXTURE, "rb") as src, open(vocab, "wb") as dst:
-        shutil.copyfileobj(src, dst)
     print(f"[loop] rendered {n_frames} frames (two laps, orbit shrinking by "
-          f"{LOOP_SPIRAL} m) {KITTI_W}x{KITTI_H} and decompressed the "
-          f"vocabulary in "
+          f"{LOOP_SPIRAL} m) {KITTI_W}x{KITTI_H} in "
           f"{time.perf_counter() - t0:.1f} s (host numpy)")
     runs = {}
-    try:
-        _vocab_timings(card, vocab, seq)
-        for name, extra in (("A", []), ("B", ["--no_loop_closure"])):
-            res = os.path.join(out, f"out_{name}")
-            log, wall, launches, by_gate, _ = run_cli(
-                [vocab, yaml, seq, "--image_ext", ".pgm", "--out_dir", res,
-                 "--device", "cuda"] + extra, out, f"irotavg_{name}")
-            rmse, n_key = rotation_rmse_deg(
-                os.path.join(res, "rotavg_poses.txt"),
-                os.path.join(res, "rotavg_poses_ids.txt"), R_gt)
-            runs[name] = dict(log=log, wall=wall, launches=launches,
-                              by_gate=by_gate, rmse=rmse, n_key=n_key)
-    finally:
-        shutil.rmtree(seq)
+    _vocab_timings(card, vocab, seq)
+    for name, extra in (("A", []), ("B", ["--no_loop_closure"])):
+        res = os.path.join(out, f"out_{name}")
+        log, wall, launches, by_gate, _ = run_cli(
+            [vocab, yaml, seq, "--image_ext", ".pgm", "--out_dir", res,
+             "--device", "cuda"] + extra, out, f"irotavg_{name}")
+        rmse, n_key = rotation_rmse_deg(
+            os.path.join(res, "rotavg_poses.txt"),
+            os.path.join(res, "rotavg_poses_ids.txt"), R_gt)
+        runs[name] = dict(log=log, wall=wall, launches=launches,
+                          by_gate=by_gate, rmse=rmse, n_key=n_key)
     edges = [tuple(int(v) for v in line.split("(")[1].split(")")[0]
                    .split(","))
              for line in runs["A"]["log"].splitlines()
@@ -861,7 +983,76 @@ def phase_loop_closure(card, out):
             and LOOP_PAYOFF * ra < rb):
         raise SmokeError(f"loop-closure payoff below {LOOP_PAYOFF}x: RMSE "
                          f"{ra} deg with against {rb} deg without")
-    return {name: (r["launches"], r["by_gate"]) for name, r in runs.items()}
+    return ({name: (r["launches"], r["by_gate"]) for name, r in runs.items()},
+            seq, yaml, R_gt, rb)
+
+
+# -- phase 7: the offline pipeline --------------------------------------------
+
+
+def phase_offline(card, out, seq, yaml, vocab, R_gt, rmse_b):
+    """The port's ``irotavg_batch`` CLI on phase 4's frames with phase 4's
+    vocabulary; see the module doc for the checks."""
+    from irotavg_tpu_torch import pipeline
+    from irotavg_tpu_torch.app import irotavg_batch
+
+    results = []
+    run_offline = pipeline.run_offline
+
+    def recording(*a, **kw):
+        results.append(run_offline(*a, **kw))
+        return results[-1]
+
+    res = os.path.join(out, "out_offline")
+    pipeline.run_offline = recording
+    try:
+        log, wall, launches, by_gate = _run_logged(
+            irotavg_batch.main,
+            [vocab, yaml, seq, "--image_ext", ".pgm", "--out_dir", res,
+             "--device", "cuda"], out, "irotavg_batch")
+    finally:
+        pipeline.run_offline = run_offline
+    r = results[0]
+    rmse, n_key = rotation_rmse_deg(os.path.join(res, "rotavg_poses.txt"),
+                                    os.path.join(res, "rotavg_poses_ids.txt"),
+                                    R_gt)
+    spans = (r.edges[r.loop_mask, 1] - r.edges[r.loop_mask, 0]).tolist()
+    hist = dict(sorted(collections.Counter(spans).items()))
+    st = r.stats
+    print(f"[offline] frames {LOOP_FRAMES}, keyframes {n_key}, edges "
+          f"{len(r.edges)} ({r.loop_edges} loop, {st['pairs_connected']} of "
+          f"{st['pairs_total']} window pairs, "
+          f"{st.get('loop_candidate_pairs', 0)} loop candidates), loop "
+          f"edges by keyframe span {hist}  ({card})")
+    print(f"[offline] stages: extract {st['extract_s']:.3f} s, flow "
+          f"{st['flow_s']:.3f} s, pairs {st['pairs_s']:.3f} s, loop "
+          f"{st.get('loop_s', 0.0):.3f} s, solve {st['solve_s']:.3f} s "
+          f"({st['irls_iters']} IRLS iterations); total {st['total_s']:.3f} "
+          f"s = {LOOP_FRAMES / st['total_s']:.3f} frames/s (CLI wall "
+          f"{wall:.1f} s)  ({card})")
+    print(f"[offline] match_best2 launches {launches}, by gate "
+          f"{json.dumps(by_gate)}  ({card})")
+    print(f"[offline] rotation RMSE {rmse:.4f} deg (JAX package, CPU: "
+          f"{JAX_OFFLINE_RMSE_DEG:.4f}; bound "
+          f"{OFFLINE_RMSE_FACTOR * JAX_OFFLINE_RMSE_DEG:.4f}); phase 4 "
+          f"RMSE_B {rmse_b:.4f}  ({card})")
+    for gate in ("local", "epipolar_nonode"):
+        if by_gate[gate] <= 0:
+            raise SmokeError(f"the offline run never launched match_best2 "
+                             f"under the {gate!r} gate")
+    if not (np.isfinite(rmse)
+            and rmse <= OFFLINE_RMSE_FACTOR * JAX_OFFLINE_RMSE_DEG):
+        raise SmokeError(f"offline RMSE {rmse} deg is not within "
+                         f"{OFFLINE_RMSE_FACTOR}x the JAX package's "
+                         f"{JAX_OFFLINE_RMSE_DEG}")
+    if JAX_OFFLINE_LOOP_EDGES > 0:
+        if not spans or max(spans) <= LOOP_MIN_SPAN:
+            raise SmokeError(f"the offline run made no loop edge spanning "
+                             f"more than {LOOP_MIN_SPAN} keyframes")
+        if not LOOP_PAYOFF * rmse < rmse_b:
+            raise SmokeError(f"offline RMSE {rmse} deg is not under "
+                             f"1/{LOOP_PAYOFF} of phase 4's RMSE_B {rmse_b}")
+    return launches, by_gate
 
 
 # -- phase 5: the solver surfaces ---------------------------------------------
@@ -1196,15 +1387,17 @@ def phase_solver(card, out):
 
 def phase_resume(card, out, seq, gt, yaml, full):
     """Phase 3's sequence in two parts through the CLI: ``--max_frames``
-    half with ``--checkpoint``, then ``--resume``; the kept frames,
-    connections and poses must be phase 3's (``full``: its view graph and
-    output directory)."""
+    half with ``--checkpoint`` and per-frame extraction (``--prefetch
+    1``), then ``--resume`` with the default batched extraction; the kept
+    frames, connections and poses must be phase 3's (``full``: its view
+    graph and output directory)."""
     res = os.path.join(out, "out_resume")
     base = ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
             "--out_dir", res, "--device", "cuda", "--checkpoint"]
     ck = os.path.join(res, "checkpoint.npz")
     _, wall_a, la, gate_a, _ = run_cli(
-        base + ["--max_frames", str(RESUME_AT)], out, "irotavg_part1")
+        base + ["--max_frames", str(RESUME_AT), "--prefetch", "1"], out,
+        "irotavg_part1")
     log, wall_b, lb, gate_b, vg = run_cli(
         base + ["--max_frames", str(MAIN_FRAMES), "--resume", ck], out,
         "irotavg_part2")
@@ -1252,14 +1445,22 @@ def main(argv=None) -> int:
               "script; run it from the root of a checkout", file=sys.stderr)
         return 1
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
-    seq = None
+    frames = []              # rendered sequences, removed at the end
     try:
         card = phase_device()
         phase_build(card)
         kern = phase_kernels(card)
         main_launches, main_by_gate, phase3 = phase_main_path(card, args.out)
-        seq = phase3[0]
-        loop = phase_loop_closure(card, os.path.join(args.out, "loop"))
+        frames.append(phase3[0])
+        vocab = vocab_file(args.out)
+        prefetch = phase_prefetch(card, phase3[0], vocab)
+        loop, seq, yaml, R_gt, rmse_b = phase_loop_closure(
+            card, os.path.join(args.out, "loop"), vocab)
+        frames.append(seq)
+        offline_launches, offline_by_gate = phase_offline(
+            card, os.path.join(args.out, "loop"), seq, yaml, vocab, R_gt,
+            rmse_b)
+        shutil.rmtree(frames.pop())
         phase_solver(card, os.path.join(args.out, "solver"))
         resume_launches, resume_by_gate = phase_resume(card, args.out,
                                                        *phase3)
@@ -1267,14 +1468,15 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
-        if seq is not None:    # the frames are regenerated from the seed
+        for seq in frames:   # the frames are regenerated from the seed
             shutil.rmtree(seq)
     kern["launches"] = (main_launches + sum(n for n, _ in loop.values())
-                        + resume_launches)
+                        + offline_launches + resume_launches)
     kern["launches_by_gate"] = {
         "phase3": main_by_gate, "phase4_loop_closure": loop["A"][1],
         "phase4_no_loop_closure": loop["B"][1],
-        "phase6_resume": resume_by_gate}
+        "phase6_resume": resume_by_gate, "phase7_offline": offline_by_gate}
+    kern["prefetch_extraction_ms"] = prefetch
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,15 @@ src/IRotAvg.cpp:132-398).
     python -m irotavg_tpu_torch.app.irotavg VOCAB CONFIG SEQUENCE_PATH
         [--image_ext .png] [--timestamp_offset 0] [--gt FILE]
         [--max_frames N] [--out_dir DIR] [--no_loop_closure]
-        [--checkpoint] [--resume SNAPSHOT] [--prefetch 0|1]
+        [--checkpoint] [--resume SNAPSHOT] [--prefetch B]
         [--device cuda|cpu]
 
 ``VOCAB`` is a DBoW2 text vocabulary (ORB-SLAM's ``ORBvoc.txt`` format),
 or ``none`` to run without place recognition.  ``--device`` is ``cuda``
 by default; without a card the CLI exits 2 unless given ``--device cpu``.
+``--prefetch B`` (default 8) extracts the frames ``B`` at a time in one
+batched pyramid (``frontend/prefetch.py``); 0 or 1 extracts one frame at
+a time.  Every engine decision is the same either way.
 
 Per frame: Frame creation (extract + undistort + BoW) ->
 ViewGraph.process_frame (skip if not a keyframe) -> loop closure
@@ -26,9 +29,7 @@ from its source-frame cursor.  The summary adds a ``loop_closure`` stage,
 the part of ``frame_processing`` spent in the loop-closure block.
 
 Limits of this port (see ROADMAP.md): ``--plot_matches`` and
-``--trace_dir`` are not ported; frames are extracted one at a time
-(``--prefetch`` accepts 0 or 1 — the reference's batched look-ahead
-leaves every engine decision unchanged).
+``--trace_dir`` are not ported.
 """
 
 from __future__ import annotations
@@ -56,8 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_frames", type=int, default=None)
     p.add_argument("--out_dir", default=".")
     p.add_argument("--no_loop_closure", action="store_true")
-    p.add_argument("--prefetch", type=int, default=1, choices=(0, 1),
-                   help="0/1: per-frame extraction (the only mode ported)")
+    p.add_argument("--prefetch", type=int, default=8, metavar="B",
+                   help="batched extraction width (frames per batch); 0/1 "
+                        "extracts per frame like the reference.  Engine "
+                        "decisions are identical either way")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--checkpoint", action="store_true",
@@ -99,6 +102,7 @@ def main(argv=None) -> int:
     from irotavg_tpu_torch.frontend.camera import Camera
     from irotavg_tpu_torch.frontend.frame import Frame
     from irotavg_tpu_torch.frontend.orb import ORBExtractor
+    from irotavg_tpu_torch.frontend.prefetch import FramePrefetcher
     from irotavg_tpu_torch.placerec.vocabulary import Vocabulary
     from irotavg_tpu_torch.utils.sequence import SequenceLoader, load_gray
     from irotavg_tpu_torch.utils.timing import StageTimer
@@ -173,6 +177,11 @@ def main(argv=None) -> int:
     todo = [(count + 1, impath) for count, (_ts, impath) in enumerate(loader)
             if count >= skip_until and count % cfg.sampling_step == 0]
     count = skip_until      # the resume cursor written into checkpoints
+    pf = None
+    if args.prefetch > 1:   # over the frames left after the resume cursor
+        pf = FramePrefetcher([(lambda p=p: load_gray(p)) for _, p in todo],
+                             extractor, camera, batch=args.prefetch,
+                             vocab=vocab)
 
     def checkpoint(count1, next_id):
         if args.checkpoint:
@@ -184,13 +193,17 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    for count1, impath in todo:
+    for k, (count1, impath) in enumerate(todo):
         if args.max_frames is not None and frame_id >= args.max_frames:
             break
         count = count1
         with timer.stage("frame_creation"):
-            frame = Frame(frame_id, load_gray(impath), extractor, camera,
-                          vocab=vocab)
+            if pf is not None:
+                frame = pf.frame(k)
+                frame.id = frame_id
+            else:
+                frame = Frame(frame_id, load_gray(impath), extractor,
+                              camera, vocab=vocab)
             sync()
         with timer.stage("frame_processing"):
             try:

@@ -49,17 +49,21 @@ class Frame:
             self.compute_bow(vocab)
 
     @classmethod
-    def from_tensors(cls, frame_id: int, out: dict, camera: Camera,
-                     bow_nid=None) -> "Frame":
+    def from_extracted(cls, frame_id: int, out: dict, camera: Camera,
+                       vocab=None, bow_nid=None) -> "Frame":
         """A Frame from an extractor-style dict of tensors (``x0, y0`` or
-        ``x, y``, optionally ``xu, yu``); ``bow_nid`` is an optional
-        precomputed ``(bow, feat_nodes)``."""
+        ``x, y``, optionally ``xu, yu``), e.g. one frame's views of a
+        batched extraction (``frontend/prefetch.py``).  ``bow_nid`` is an
+        optional precomputed ``(bow, feat_nodes)``; without it, ``vocab``
+        (when given) is applied with :meth:`compute_bow`."""
         self = cls.__new__(cls)
         self.id = frame_id
         self.camera = camera
         self._attach(out, camera)
         if bow_nid is not None:
             self._set_bow(*bow_nid)
+        elif vocab is not None:
+            self.compute_bow(vocab)
         return self
 
     @classmethod

@@ -29,7 +29,7 @@ from irotavg_tpu_torch.ops.fast import (
     cell_fallback_mask, fast_score_map, nms3,
 )
 from irotavg_tpu_torch.ops.image import (
-    gaussian_blur7, pyramid_sizes, resize_bilinear,
+    gaussian_blur7, pyramid_sizes, reflect_pad, resize_bilinear,
 )
 from irotavg_tpu_torch.ops.orient import ic_angles
 
@@ -66,17 +66,19 @@ class OrbParams:
 
 
 def _patches(src, cy, cx, r, pad):
-    """(K, 2r+1, 2r+1) patches of ``src`` (padded by ``pad``) centred on
-    the keypoints."""
+    """``(B, K, 2r+1, 2r+1)`` patches of the ``(B, H, W)`` images ``src``
+    (padded by ``pad``) centred on the ``(B, K)`` keypoints."""
     off = torch.arange(-r, r + 1, device=src.device)
-    rows = (cy + pad)[:, None] + off
-    cols = (cx + pad)[:, None] + off
-    return src[rows[:, :, None], cols[:, None, :]]
+    rows = (cy + pad)[..., None] + off
+    cols = (cx + pad)[..., None] + off
+    b = torch.arange(src.shape[0], device=src.device)[:, None, None, None]
+    return src[b, rows[..., :, None], cols[..., None, :]]
 
 
 def _extract_level(img, th_hi, th_lo, k_budget: int):
-    """All keypoints of one pyramid level (f32 image)."""
-    h, w = img.shape
+    """All keypoints of one pyramid level of ``(B, H, W)`` f32 images;
+    every output has a leading ``B``."""
+    B, h, w = img.shape
     dev = img.device
     ninf = float("-inf")
     score = fast_score_map(img)
@@ -87,7 +89,7 @@ def _extract_level(img, th_hi, th_lo, k_budget: int):
     score = torch.where(region, score, torch.full_like(score, ninf))
 
     sp = F.pad(score, (0, -w % TH_CELL, 0, -h % TH_CELL), value=ninf)
-    corners = cell_fallback_mask(sp, th_hi, th_lo, TH_CELL)[:h, :w]
+    corners = cell_fallback_mask(sp, th_hi, th_lo, TH_CELL)[:, :h, :w]
     corners &= nms3(score)
     cscore = torch.where(corners, score, torch.full_like(score, ninf))
 
@@ -95,39 +97,49 @@ def _extract_level(img, th_hi, th_lo, k_budget: int):
     wc = -(-w // SEL_CELL)
     cs = F.pad(cscore, (0, wc * SEL_CELL - w, 0, hc * SEL_CELL - h),
                value=ninf)
-    blocks = cs.reshape(hc, SEL_CELL, wc, SEL_CELL).permute(0, 2, 1, 3)
-    blocks = blocks.reshape(hc * wc, SEL_CELL * SEL_CELL)
-    in_cell = torch.argmax(blocks, dim=1)          # first occurrence
-    cell_max = blocks.gather(1, in_cell[:, None])[:, 0]
+    blocks = cs.reshape(B, hc, SEL_CELL, wc, SEL_CELL).permute(0, 1, 3, 2, 4)
+    blocks = blocks.reshape(B, hc * wc, SEL_CELL * SEL_CELL)
+    in_cell = torch.argmax(blocks, dim=-1)         # first occurrence
+    cell_max = blocks.gather(-1, in_cell[..., None])[..., 0]
 
+    # per image: a stable descending sort along the cells
     k = min(k_budget, hc * wc)
-    top_val, top_cell = torch.sort(cell_max, descending=True, stable=True)
-    top_val, top_cell = top_val[:k], top_cell[:k]
+    top_val, top_cell = torch.sort(cell_max, dim=-1, descending=True,
+                                   stable=True)
+    top_val, top_cell = top_val[:, :k], top_cell[:, :k]
     valid = torch.isfinite(top_val)
-    off = in_cell[top_cell]
+    off = in_cell.gather(-1, top_cell)
     cy = torch.clamp((top_cell // wc) * SEL_CELL + off // SEL_CELL, 0, h - 1)
     cx = torch.clamp((top_cell % wc) * SEL_CELL + off % SEL_CELL, 0, w - 1)
 
-    def reflect(a):
-        return F.pad(a[None, None], (PATCH_R,) * 4, mode="reflect")[0, 0]
-
-    angles = ic_angles(_patches(reflect(img), cy, cx, 15, PATCH_R))
+    # the moment sums run image by image on a fresh (K, 31, 31) tensor, as
+    # for one image: CUDA's reduction layout depends on the number of
+    # outputs and on the data's alignment, so one call over B*K patches
+    # could round differently from B calls over K
+    ip = _patches(reflect_pad(img, PATCH_R), cy, cx, 15, PATCH_R)
+    angles = torch.stack([ic_angles(ip[b].clone()) for b in range(B)])
     # quantise like the reference's uint8 blurred image (half to even)
-    bp = torch.round(reflect(gaussian_blur7(img)))
-    desc = steered_brief(_patches(bp, cy, cx, PATCH_R, PATCH_R), angles)
+    bp = torch.round(reflect_pad(gaussian_blur7(img), PATCH_R))
+    desc = steered_brief(
+        _patches(bp, cy, cx, PATCH_R, PATCH_R).reshape(
+            B * k, 2 * PATCH_R + 1, 2 * PATCH_R + 1),
+        angles.reshape(B * k)).reshape(B, k, 8)
     return {"x": cx.to(torch.float32), "y": cy.to(torch.float32),
             "response": top_val, "angle": angles, "desc": desc,
             "valid": valid}
 
 
-def extract(img, params: OrbParams) -> dict:
-    """The whole pyramid for one (H, W) or (H, W, 3) image tensor."""
-    h, w = img.shape[:2]
+def extract_batch(imgs, params: OrbParams) -> dict:
+    """The whole pyramid for a ``(B, H, W)`` or ``(B, H, W, 3)`` stack of
+    images: a dict of ``(B, N, ...)`` tensors.  Every operation is
+    elementwise, per cell or per image, so ``out[k][b]`` equals
+    :func:`extract` of image ``b`` bit for bit."""
+    h, w = imgs.shape[1:3]
     sizes = pyramid_sizes(h, w, params.n_levels, params.scale_factor)
     budgets = params.level_budgets()
     scales = params.scale_factors()
-    cur = img.to(torch.float32)
-    if cur.dim() == 3:
+    cur = imgs.to(torch.float32)
+    if cur.dim() == 4:
         cur = 0.299 * cur[..., 0] + 0.587 * cur[..., 1] + 0.114 * cur[..., 2]
     levels = []
     for lv in range(params.n_levels):
@@ -143,7 +155,13 @@ def extract(img, params: OrbParams) -> dict:
         out["size"] = torch.full(out["x"].shape, 31.0 * scales[lv],
                                  dtype=torch.float32, device=cur.device)
         levels.append(out)
-    return {key: torch.cat([lv[key] for lv in levels]) for key in levels[0]}
+    return {key: torch.cat([lv[key] for lv in levels], dim=1)
+            for key in levels[0]}
+
+
+def extract(img, params: OrbParams) -> dict:
+    """The whole pyramid for one (H, W) or (H, W, 3) image tensor."""
+    return {k: v[0] for k, v in extract_batch(img[None], params).items()}
 
 
 class ORBExtractor:
@@ -169,6 +187,15 @@ class ORBExtractor:
         return sum(self.params.level_budgets())
 
     def __call__(self, image) -> dict:
+        return extract(self._tensor(image), self.params)
+
+    def extract_batch(self, images) -> dict:
+        """``(B, H, W)`` images (a tensor, an array or a list of arrays) ->
+        dict of ``(B, N, ...)`` tensors on ``device``; ``out[k][b]`` is
+        this extractor's output for image ``b``."""
+        return extract_batch(self._tensor(images), self.params)
+
+    def _tensor(self, image):
         img = image if torch.is_tensor(image) else \
             torch.from_numpy(np.ascontiguousarray(image))
-        return extract(img.to(self.device), self.params)
+        return img.to(self.device)

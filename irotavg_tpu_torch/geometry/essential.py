@@ -325,13 +325,15 @@ def _cheirality_counts(E, p1, p2, inl):
 def draw_indices(valid, shape, generator):
     """Uniform position indices over the valid set: ranks in
     [0, n_valid) mapped through the cumulative count (the reference's
-    masked draw, essential.py:620-627)."""
+    masked draw, essential.py:620-627).  With no valid entry every index
+    is the last position, as the reference's clamped gather reads it."""
     cs = torch.cumsum(valid.to(torch.int64), dim=0)
     nv = torch.clamp(cs[-1], min=1)
     u = torch.rand(shape, generator=generator, device=valid.device,
                    dtype=torch.float64)
     ranks = torch.minimum((u * nv).long(), nv - 1)
-    return torch.searchsorted(cs, ranks, right=True)
+    return torch.searchsorted(cs, ranks, right=True).clamp(
+        max=valid.shape[0] - 1)
 
 
 def ransac_essential(p1, p2, valid, generator=None, *, th_norm,

@@ -19,6 +19,11 @@ The reference's ``vmap`` over the K window candidates is a batch axis
 here: the candidates' epipolar re-matching reaches the matcher kernel as
 one batched launch (``B = K``).  Random draws come from one
 ``torch.Generator`` per frame, consumed in a fixed order.
+
+The offline pipeline's functions (`fused_flow`, `fused_pair_estimate`)
+take P independent frame pairs: their local matching is one batched
+launch with a column frame per lane, and so is the refine of the pairs
+that reach it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import math
 
 import torch
 
+from irotavg_tpu_torch.device import make_generator
 from irotavg_tpu_torch.geometry.essential import (
     ransac_essential, recover_pose,
 )
@@ -73,22 +79,27 @@ def _flip_assignment(m12_cp, n_prev):
 
 
 def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
-                 th_norm, gen, min_pairs, has_nodes=False):
-    """`refinePose` over a batch of B row frames against one column frame.
+                 th_norm, gen, min_pairs, has_nodes=False,
+                 max_iters=MAX_ITERS):
+    """`refinePose` over a batch of B row frames.
 
     ``f1`` holds row-frame tensors with a leading batch axis
     ``(desc, nodes, valid, angle, x, y, octave)``; ``f2`` the column
-    frame's ``(desc, nodes, valid, angle, x, y)``.  Each lane re-matches
-    with the epipolar gate of its current E, re-solves, and keeps the best
-    model while the cheirality count strictly grows; a lane stops when
-    the rematch is too small (< ``min_pairs``, <= 4), recovery gives <= 6
-    inliers, or after two re-solves without improvement.  Stopped lanes
-    are frozen.  ``has_nodes`` selects the ``epipolar`` gate (same
-    vocabulary node required) over ``epipolar_nonode``.  Returns (E, R,
-    t, best_n, best_m12, iters) per lane.
+    frame's ``(desc, nodes, valid, angle, x, y)``, either one frame shared
+    by every lane (``desc`` is ``(N2, 8)``; the kernel reads it with a
+    batch stride of 0) or one frame per lane (a leading ``B``, as the
+    offline pairs give).  Each lane re-matches with the epipolar gate of
+    its current E, re-solves, and keeps the best model while the
+    cheirality count strictly grows; a lane stops when the rematch is too
+    small (< ``min_pairs``, <= 4), recovery gives <= 6 inliers, or after
+    two re-solves without improvement.  Stopped lanes are frozen.
+    ``has_nodes`` selects the ``epipolar`` gate (same vocabulary node
+    required) over ``epipolar_nonode``.  Returns (E, R, t, best_n,
+    best_m12, iters) per lane.
     """
     desc1, nodes1, valid1, angle1, x1, y1, oct1 = f1
-    desc2, nodes2, valid2, angle2, x2, y2 = f2
+    per_lane = f2[0].dim() == 3
+    x2, y2 = f2[4], f2[5]
     B = desc1.shape[0]
     f32 = torch.float32
     E_cur = E0.to(f32).clone()
@@ -98,20 +109,21 @@ def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
     done = [False] * B
     stall = [0] * B
     it = 0
-    while not all(done) and it < MAX_ITERS:
+    while not all(done) and it < max_iters:
         lanes = [b for b in range(B) if not done[b]]
         sel = torch.tensor(lanes, device=desc1.device)
         F = K_inv.T @ E_cur[sel] @ K_inv
+        cols = tuple(a[sel] for a in f2) if per_lane else f2
         m12 = _match_epipolar_core(
             desc1[sel], nodes1[sel], valid1[sel], angle1[sel], x1[sel],
-            y1[sel], oct1[sel], desc2, nodes2, valid2, angle2, x2, y2,
-            F, sigma2, has_nodes=has_nodes)
+            y1[sel], oct1[sel], *cols, F, sigma2, has_nodes=has_nodes)
         counts = (m12 >= 0).sum(dim=1).tolist()
         for k, b in enumerate(lanes):
             # fresh hypotheses every re-solve (no model seeding): a seeded
             # pool locks into a model that cheirality rejects
             E_new, R_new, t_new, n_new, pose_mask = _ransac_from_assignment(
-                m12[k], x1[b], y1[b], x2, y2, cam, th_norm, gen)
+                m12[k], x1[b], y1[b], x2[b] if per_lane else x2,
+                y2[b] if per_lane else y2, cam, th_norm, gen)
             n_new = int(n_new)
             usable = (counts[k] >= min_pairs and counts[k] > 4
                       and n_new > 6)
@@ -312,3 +324,91 @@ def fused_bow_pair_estimate(f1, f2, K_inv, sigma2, cam, th_norm, gen,
         E, R, t, n, m12 = Er[0], Rr[0], tr[0], int(nr[0]), m12r[0]
     success = rel_ok and int((m12 >= 0).sum()) >= min_matches
     return E, R, t, n, m12, success
+
+
+def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, gen,
+                        min_matches, max_iters=MAX_ITERS):
+    """Independent two-view estimation for P arbitrary frame pairs (the
+    offline pipeline's core, ``_pair_estimate_core`` of the reference).
+
+    ``fa`` / ``fb`` are the source (A) and target (B) frames ``(desc,
+    valid, octave, x, y, angle)`` with a leading P, ``radius`` a ``(P,)``
+    search radius per pair.  Per pair: local window matching (A rows -> B
+    columns; all pairs in one batched launch, gate ``local``), essential
+    RANSAC + cheirality (``rel_ok``: more than 4 matches and more than 6
+    inliers), then, when more than 10 matches survive it, the epipolar
+    refine of every such pair in one batched run with each lane's own
+    column frame (gate ``epipolar_nonode``, rematch floor ``ceil(0.75 *
+    min_matches)``).  ``success`` (a host list) when ``rel_ok`` and the
+    final count reaches ``min_matches``; the pose maps A -> B (edge
+    convention ``R_B = R_AB R_A``).  Draws come from ``gen``: the initial
+    RANSACs pair by pair, then the refine.  Returns (E, R, t, n_che, m12,
+    success) with leading P.
+    """
+    dA, vA, oA, xA, yA, aA = fa
+    dB, vB, oB, xB, yB, aB = fb
+    m12 = _match_locally_core(dA, vA, oA, xA, yA, dB, vB, oB, xB, yB,
+                              radius, 0.9)
+    P = dA.shape[0]
+    count0 = (m12 >= 0).sum(dim=1).tolist()
+    poses = [_ransac_from_assignment(m12[p], xA[p], yA[p], xB[p], yB[p],
+                                     cam, th_norm, gen) for p in range(P)]
+    E, R, t, n, mask = (torch.stack(v) for v in zip(*poses))
+    m12 = torch.where(mask, m12, torch.full_like(m12, -1))
+    n0 = n.tolist()
+    cntf = (m12 >= 0).sum(dim=1)
+    rel_ok = [count0[p] > 4 and n0[p] > 6 for p in range(P)]
+    # more than 10 matches surviving cheirality implies rel_ok
+    refine = [p for p, c in enumerate(cntf.tolist()) if c > 10]
+    if refine:
+        sel = torch.tensor(refine, device=dA.device)
+        nodes_a = torch.zeros_like(vA[sel], dtype=torch.int32)
+        nodes_b = torch.zeros_like(vB[sel], dtype=torch.int32)
+        E[sel], R[sel], t[sel], n[sel], m12[sel], _ = fused_refine(
+            (dA[sel], nodes_a, vA[sel], aA[sel], xA[sel], yA[sel], oA[sel]),
+            (dB[sel], nodes_b, vB[sel], aB[sel], xB[sel], yB[sel]),
+            E[sel], R[sel], t[sel], cntf[sel], m12[sel], K_inv, sigma2,
+            cam, th_norm, gen, math.ceil(0.75 * min_matches), False,
+            max_iters)
+    final = (m12 >= 0).sum(dim=1).tolist()
+    success = [rel_ok[p] and final[p] >= min_matches for p in range(P)]
+    return E, R, t, n, m12, success
+
+
+def fused_pair_estimate_gather(desc, valid, octave, x, y, angle, ia, ib,
+                               radius, K_inv, sigma2, cam, th_norm, seed,
+                               min_matches, max_iters=MAX_ITERS):
+    """:func:`fused_pair_estimate` of the pairs ``(ia[p], ib[p])`` of
+    stacked ``(F, N, ...)`` features, with a generator seeded ``seed``."""
+    fa = tuple(a[ia] for a in (desc, valid, octave, x, y, angle))
+    fb = tuple(a[ib] for a in (desc, valid, octave, x, y, angle))
+    gen = make_generator(seed, desc.device)
+    return fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm,
+                               gen, min_matches, max_iters)
+
+
+def fused_flow(fa, fb, radius):
+    """Mean feature displacement between P frame pairs (the offline
+    analogue of `findInitialPose`'s velocity estimate,
+    src/ViewGraph.cpp:848-864): per pair, local-window matching (one
+    batched launch, gate ``local``) then the mean match displacement in
+    pixels.  ``fa`` / ``fb``: ``(desc, valid, octave, x, y)`` with a
+    leading P.  Returns (mean_disp (P,) f32, n_matches (P,) int32)."""
+    xa, ya = fa[3], fa[4]
+    xb, yb = fb[3], fb[4]
+    m12 = _match_locally_core(*fa, *fb, radius, 0.9)
+    matched = m12 >= 0
+    count = matched.sum(dim=1)
+    j = m12.clamp(min=0)
+    disp = torch.hypot(xa - xb.gather(1, j), ya - yb.gather(1, j))
+    mean = torch.where(matched, disp, torch.zeros_like(disp)).sum(dim=1) \
+        / count.clamp(min=1)
+    return mean.to(torch.float32), count.to(torch.int32)
+
+
+def fused_flow_gather(desc, valid, octave, x, y, ia, ib, radius):
+    """:func:`fused_flow` of the pairs ``(ia[p], ib[p])`` of stacked
+    ``(F, N, ...)`` features."""
+    fa = tuple(a[ia] for a in (desc, valid, octave, x, y))
+    fb = tuple(a[ib] for a in (desc, valid, octave, x, y))
+    return fused_flow(fa, fb, radius)

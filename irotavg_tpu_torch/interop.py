@@ -30,6 +30,30 @@ def frame_from_arrays(d: dict, camera, device=None, bow=None,
                          feat_nodes=feat_nodes, device=device)
 
 
+def features_from_arrays(outs: list, device=None) -> dict:
+    """Stacked ``(B, N, ...)`` tensors from a list of reference extractor
+    outputs (dicts of host arrays: ``desc`` as (N, 8) uint32 words, carried
+    as int32 bit patterns; ``x0, y0, x, y, angle, response, size`` f32;
+    ``octave`` int32; ``valid`` bool) — the layout of the port's
+    ``extract_batch``."""
+    import torch
+
+    from irotavg_tpu_torch.device import pick_device
+
+    dev = pick_device(device)
+    out = {}
+    for k in outs[0]:
+        a = np.stack([np.asarray(o[k]) for o in outs])
+        if k == "desc":
+            a = np.ascontiguousarray(a.astype(np.uint32)).view(np.int32)
+        elif k == "octave":
+            a = a.astype(np.int32)
+        elif a.dtype != bool:
+            a = a.astype(np.float32)
+        out[k] = torch.as_tensor(a, device=dev)
+    return out
+
+
 def vocabulary_from_arrays(k, L, children, node_desc, weight, word_id,
                            is_leaf, scoring="L1", weighting="TF_IDF",
                            device=None):

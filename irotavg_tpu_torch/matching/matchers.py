@@ -127,10 +127,12 @@ def _match_epipolar_core(desc1, nodes1, valid1, angle1, x1, y1, oct1,
 
 def _match_locally_core(desc1, valid1, oct1, gx, gy,
                         desc2, valid2, oct2, x2, y2, radius, nnratio):
+    """``radius`` is one number, or a ``(B,)`` tensor giving each lane of
+    batched rows its own."""
     # square search window (Frame::getFeaturesInArea filters |dx|,|dy| <= r)
-    rowf = make_rowf(valid1, x=gx, y=gy, octave=oct1,
-                     th=torch.full(gx.shape, float(radius),
-                                   dtype=torch.float32, device=gx.device))
+    th = torch.as_tensor(radius, dtype=torch.float32, device=gx.device)
+    th = (th[..., None] if th.dim() else th).expand(gx.shape)
+    rowf = make_rowf(valid1, x=gx, y=gy, octave=oct1, th=th)
     colf = make_colf(valid2, x=x2, y=y2, octave=oct2)
     d1, d2, best = _best_two(desc1, desc2, rowf, colf, "local")
     ok = (d1 <= TH_LOW) & (d1.float() < nnratio * d2.float())

@@ -27,15 +27,16 @@ ARC = 9  # contiguous arc length for FAST-9
 
 
 def fast_score_map(img):
-    """(H, W) f32 FAST-9/16 score; pixels within 3 px of the border get
-    -inf.  Neighbours beyond the border replicate the edge (the
+    """``([B,] H, W)`` f32 FAST-9/16 score; pixels within 3 px of the
+    border get -inf.  Neighbours beyond the border replicate the edge (the
     reference's ``mode="edge"``)."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     pad = 3
-    p = F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
-    d = torch.stack([p[pad + dy:pad + dy + h, pad + dx:pad + dx + w] - img
-                     for dy, dx in FAST_OFFSETS.tolist()])   # (16, H, W)
-    ext = torch.cat([d, d[:ARC - 1]], dim=0)                  # (24, H, W)
+    p = F.pad(img.reshape(-1, 1, h, w), (pad,) * 4, mode="replicate")
+    p = p.reshape(img.shape[:-2] + p.shape[-2:])
+    d = torch.stack([p[..., pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+                     - img for dy, dx in FAST_OFFSETS.tolist()])
+    ext = torch.cat([d, d[:ARC - 1]], dim=0)            # (24, [B,] H, W)
 
     def arc_scores(vals):
         mins = vals[:16]
@@ -51,16 +52,17 @@ def fast_score_map(img):
 
 
 def nms3(score):
-    """3x3 non-max suppression: a pixel must beat its neighbours earlier
-    in row-scan order strictly and tie-or-beat the later ones."""
-    h, w = score.shape
-    p = F.pad(score[None, None], (1, 1, 1, 1), value=-np.inf)[0, 0]
+    """3x3 non-max suppression of ``([B,] H, W)`` scores: a pixel must
+    beat its neighbours earlier in row-scan order strictly and tie-or-beat
+    the later ones."""
+    h, w = score.shape[-2:]
+    p = F.pad(score, (1, 1, 1, 1), value=-np.inf)
     keep = torch.ones_like(score, dtype=torch.bool)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             if dy == 0 and dx == 0:
                 continue
-            nb = p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+            nb = p[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
             if (dy, dx) < (0, 0):             # earlier in scan order
                 keep &= score > nb
             else:
@@ -70,13 +72,13 @@ def nms3(score):
 
 def cell_fallback_mask(score, th_hi: float, th_lo: float, cell: int = 32):
     """Two-threshold detection with per-cell fallback (cells with a
-    high-threshold corner use the high threshold, others the low one).
-    H and W must be multiples of ``cell``."""
-    h, w = score.shape
+    high-threshold corner use the high threshold, others the low one) of
+    ``([B,] H, W)`` scores.  H and W must be multiples of ``cell``."""
+    h, w = score.shape[-2:]
     if h % cell or w % cell:
         raise ValueError("pad the score map to a cell multiple")
     hi = score >= th_hi
-    has_hi = hi.reshape(h // cell, cell, w // cell, cell).any(dim=3).any(
-        dim=1)
-    has_hi = has_hi.repeat_interleave(cell, 0).repeat_interleave(cell, 1)
+    has_hi = hi.reshape(score.shape[:-2] + (h // cell, cell, w // cell, cell)
+                        ).any(dim=-1).any(dim=-2)
+    has_hi = has_hi.repeat_interleave(cell, -2).repeat_interleave(cell, -1)
     return torch.where(has_hi, hi, score >= th_lo)

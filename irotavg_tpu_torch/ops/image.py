@@ -32,23 +32,32 @@ def _gauss_kernel(ksize: int, sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+def reflect_pad(img, r: int):
+    """REFLECT_101 padding by ``r`` of the last two axes of ``([B,] H, W)``."""
+    h, w = img.shape[-2:]
+    x = F.pad(img.reshape(-1, 1, h, w), (r,) * 4, mode="reflect")
+    return x.reshape(img.shape[:-2] + x.shape[-2:])
+
+
 def gaussian_blur7(img, sigma: float = 2.0):
-    """7x7 separable Gaussian blur, BORDER_REFLECT_101; (H, W) f32.
+    """7x7 separable Gaussian blur, BORDER_REFLECT_101; ``([B,] H, W)`` f32.
 
     Each pass is an explicit sum of seven shifted, weighted copies in tap
     order (no convolution library, whose algorithm choice would change the
-    rounding from call to call)."""
+    rounding from call to call), so a batch gives each image's unbatched
+    result bit for bit."""
     k = _gauss_kernel(7, sigma).tolist()
-    h, w = img.shape
-    x = F.pad(img[None, None], (3, 3, 3, 3), mode="reflect")[0, 0]
-    rows = sum(k[i] * x[:, i:i + w] for i in range(7))
-    return sum(k[i] * rows[i:i + h, :] for i in range(7))
+    h, w = img.shape[-2:]
+    x = reflect_pad(img, 3)
+    rows = sum(k[i] * x[..., :, i:i + w] for i in range(7))
+    return sum(k[i] * rows[..., i:i + h, :] for i in range(7))
 
 
 def resize_bilinear(img, out_h: int, out_w: int):
     """Bilinear resize with half-pixel alignment (cv::resize INTER_LINEAR:
-    src = (dst + 0.5) * scale - 0.5, edge-clamped)."""
-    h, w = img.shape
+    src = (dst + 0.5) * scale - 0.5, edge-clamped) of the last two axes
+    of ``([B,] H, W)``."""
+    h, w = img.shape[-2:]
     dev = img.device
     sy = h / out_h
     sx = w / out_w
@@ -64,5 +73,6 @@ def resize_bilinear(img, out_h: int, out_w: int):
     x0 = x0.long()
     y1 = torch.clamp(y0 + 1, max=h - 1)
     x1 = torch.clamp(x0 + 1, max=w - 1)
-    row = img[y0, :] * (1.0 - wy)[:, None] + img[y1, :] * wy[:, None]
-    return row[:, x0] * (1.0 - wx)[None, :] + row[:, x1] * wx[None, :]
+    row = img[..., y0, :] * (1.0 - wy)[:, None] + \
+        img[..., y1, :] * wy[:, None]
+    return row[..., x0] * (1.0 - wx)[None, :] + row[..., x1] * wx[None, :]

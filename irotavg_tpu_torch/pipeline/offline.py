@@ -1,0 +1,365 @@
+"""Offline batched rotation-averaging pipeline.
+
+Port of ``irotavg_tpu/pipeline/offline.py``.  The same program as the
+incremental engine (ORB features, local matching, essential RANSAC and
+refine, keyframe thinning, window edges, optional BoW loop closure,
+robust rotation averaging), organised for throughput:
+
+  1. **extract**: frames in batches through the batched pyramid
+     (``ORBExtractor.extract_batch``); keypoints undistorted on the host
+     in f64 when the camera has distortion;
+  2. **flow / keyframe thinning**: the mean feature displacement of each
+     consecutive pair (`fused_flow`, ``chunk`` pairs a launch); the
+     reference's keyframe gate (reject when motion < 5 px,
+     src/ViewGraph.cpp:1071) becomes greedy thinning over accumulated
+     flow;
+  3. **pair estimation**: every (i, i-k) window pair of the keyframes in
+     chunks of ``chunk`` pairs (`fused_pair_estimate`: match -> RANSAC ->
+     refine per pair, the matching of a chunk one launch with a column
+     frame per lane); failed pairs are retried once at twice the radius;
+  4. **loop closure** (vocabulary given): the keyframes' BoW in batched
+     descents, the inverted-file cascade and consecutive-group
+     consistency as in the incremental engine, loop pairs verified in
+     one batch;
+  5. **solve**: one spanning-tree init + L1-RA + IRLS over the whole
+     graph, in f64.
+
+Divergences from the incremental path (the reference's, kept): window
+edges are matched directly (A against B) rather than through pivot
+chaining (src/ViewGraph.cpp:786-825), and the keyframe gate uses the
+accumulated consecutive flow as the motion estimate.  Random draws come
+from one ``torch.Generator`` per chunk of pairs, seeded ``(seed + lo) &
+0xFFFFFFFF`` like the reference's per-chunk keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+
+import numpy as np
+import torch
+
+from irotavg_tpu_torch import so3
+from irotavg_tpu_torch.config import PipelineConfig
+from irotavg_tpu_torch.geometry.fused import (
+    fused_flow_gather, fused_pair_estimate_gather,
+)
+from irotavg_tpu_torch.placerec.bow import bow_score
+from irotavg_tpu_torch.placerec.database import ViewDatabase
+from irotavg_tpu_torch.solver import RotationGraph, init_mst, irls, l1ra
+from irotavg_tpu_torch.solver.irls import Cost, IRLSConfig
+from irotavg_tpu_torch.solver.l1ra import L1RAConfig
+
+FLOW_RADIUS = 90.0          # px, the flow stage's local search window
+LOOP_RADIUS = 512.0         # px, the loop pairs' search window
+BOW_CHUNK = 16              # keyframes per batched vocabulary descent
+RETRY_SEED = 7919           # seed offsets of the retry and loop passes
+LOOP_SEED = 104729
+
+
+@dataclasses.dataclass
+class OfflineResult:
+    Q: np.ndarray              # (K, 4) absolute rotations [x y z w]
+    keyframes: list[int]       # source frame index per solved rotation
+    edges: np.ndarray          # (M, 2) indices into keyframes
+    QQ: np.ndarray             # (M, 4) relative rotations per edge
+    n_matches: np.ndarray      # (M,) inlier matches per edge
+    loop_edges: int            # how many edges came from loop closure
+    loop_mask: np.ndarray      # (M,) bool, True where the edge is a loop edge
+    stats: dict                # stage timing / solve stats
+
+
+def _chunks(n, size):
+    for lo in range(0, n, size):
+        yield lo, min(lo + size, n)
+
+
+def _load(image) -> np.ndarray:
+    return np.asarray(image() if callable(image) else image, np.uint8)
+
+
+def _sync(dev) -> None:
+    """Finish the device's queued work (stage timing)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_offline(images, camera, extractor, *, vocab=None,
+                cfg: PipelineConfig | None = None, batch: int = 8,
+                chunk: int = 8, min_matches: int | None = None,
+                win_size: int | None = None, seed: int = 0,
+                keyframe_gate_px: float = 5.0, refine_iters: int = 10,
+                progress=None) -> OfflineResult:
+    """Run the full batched pipeline over a sequence of grayscale images.
+
+    ``images`` is a sequence of arrays or callables returning arrays
+    (lazy loading).  Everything runs on ``extractor.device``.  Returns
+    rotations for the selected keyframes; as in the reference,
+    translations are never estimated.
+    """
+    cfg = cfg or PipelineConfig()
+    min_matches = cfg.vg_min_matches if min_matches is None else min_matches
+    win_size = cfg.vg_win_size if win_size is None else win_size
+    dev = extractor.device
+    stats: dict = {}
+    t_start = time.perf_counter()
+
+    # -- stage 1: batched extraction ----------------------------------------
+    B = len(images)
+    feats: dict = {}
+    for lo, hi in _chunks(B, batch):
+        out = extractor.extract_batch(
+            np.stack([_load(images[i]) for i in range(lo, hi)]))
+        for k_, v in out.items():
+            feats.setdefault(k_, []).append(v)
+        if progress:
+            progress(f"extracted {hi}/{B}")
+    feats = {k_: torch.cat(v) for k_, v in feats.items()}
+    desc, valid, octave = feats["desc"], feats["valid"], feats["octave"]
+    angle = feats["angle"].to(torch.float32)
+    if camera.has_distortion:
+        xh, yh = feats["x0"].cpu().numpy(), feats["y0"].cpu().numpy()
+        xu, yu = camera.undistort_points(xh.ravel(), yh.ravel())
+        x = torch.as_tensor(xu.reshape(xh.shape), dtype=torch.float32,
+                            device=dev)
+        y = torch.as_tensor(yu.reshape(yh.shape), dtype=torch.float32,
+                            device=dev)
+    else:
+        x = feats["x0"].to(torch.float32)
+        y = feats["y0"].to(torch.float32)
+    _sync(dev)
+    stats["extract_s"] = time.perf_counter() - t_start
+
+    # -- stage 2: consecutive flow + keyframe thinning -----------------------
+    t0 = time.perf_counter()
+    flow_out = []
+    for lo, hi in _chunks(B - 1, chunk):
+        ia = torch.arange(lo, hi, device=dev)
+        flow_out.append(fused_flow_gather(desc, valid, octave, x, y, ia,
+                                          ia + 1, FLOW_RADIUS))
+    flows = torch.cat([f for f, _ in flow_out]).cpu().numpy() if flow_out \
+        else np.zeros(0, np.float32)
+    # greedy thinning on accumulated flow (keyframe gate parity: 5 px)
+    keyframes = [0]
+    acc = 0.0
+    acc_since = []          # accumulated flow between consecutive keyframes
+    for i in range(1, B):
+        acc += float(flows[i - 1])
+        if acc >= keyframe_gate_px:
+            keyframes.append(i)
+            acc_since.append(acc)
+            acc = 0.0
+    K = len(keyframes)
+    stats["flow_s"] = time.perf_counter() - t0
+    if K < 2:
+        raise ValueError("fewer than two keyframes survive the motion gate")
+
+    # -- stage 3: window pair estimation -------------------------------------
+    t0 = time.perf_counter()
+    pairs = []              # (a, b) indices into `keyframes`, a < b
+    radii = []
+    cum = np.concatenate([[0.0], np.cumsum(acc_since)])  # flow up to kf k
+    for bkf in range(1, K):
+        for w in range(1, win_size + 1):
+            akf = bkf - w
+            if akf < 0:
+                break
+            span = cum[bkf] - cum[akf]
+            pairs.append((akf, bkf))
+            radii.append(np.clip(1.25 * span + 30.0, 45.0, 512.0))
+    pairs = np.asarray(pairs, np.int64)
+    radii = np.asarray(radii, np.float32)
+    kf = np.asarray(keyframes)
+
+    f32 = torch.float32
+    K_inv = torch.as_tensor(np.linalg.inv(camera.K), dtype=f32, device=dev)
+    sigma2 = torch.as_tensor((1.2 ** np.arange(8)) ** 2, dtype=f32,
+                             device=dev)
+    camv = torch.tensor([camera.fx, camera.fy, camera.cx, camera.cy],
+                        dtype=f32, device=dev)
+    th_norm = torch.tensor(1.0 / camera.fx, dtype=f32, device=dev)
+
+    def estimate_pairs(pair_arr, rad_arr, key0):
+        """Chunked `fused_pair_estimate` over (P, 2) keyframe-index pairs:
+        (R (P, 3, 3), final match counts (P,), success (P,))."""
+        P = len(pair_arr)
+        Rs = np.zeros((P, 3, 3), np.float32)
+        ns = np.zeros(P, np.int64)
+        succ = np.zeros(P, bool)
+        for lo, hi in _chunks(P, chunk):
+            ia = torch.as_tensor(kf[pair_arr[lo:hi, 0]], device=dev)
+            ib = torch.as_tensor(kf[pair_arr[lo:hi, 1]], device=dev)
+            _, R, _, _, m12, success = fused_pair_estimate_gather(
+                desc, valid, octave, x, y, angle, ia, ib,
+                torch.as_tensor(rad_arr[lo:hi], device=dev), K_inv, sigma2,
+                camv, th_norm, (key0 + lo) & 0xFFFFFFFF, min_matches,
+                refine_iters)
+            Rs[lo:hi] = R.cpu().numpy()
+            ns[lo:hi] = (m12 >= 0).sum(dim=1).cpu().numpy()
+            succ[lo:hi] = success
+            if progress:
+                progress(f"pairs {hi}/{P}")
+        return Rs, ns, succ
+
+    Rs, ns, succ = estimate_pairs(pairs, radii, seed)
+    # failed pairs get one retry at a doubled search radius (the
+    # incremental engine's radius-escalation analogue, :884-899)
+    retry = ~succ
+    if retry.any():
+        Rs2, ns2, succ2 = estimate_pairs(
+            pairs[retry], np.clip(radii[retry] * 2.0, None, 512.0),
+            seed + RETRY_SEED)
+        ridx = np.where(retry)[0][succ2]
+        Rs[ridx] = Rs2[succ2]
+        ns[ridx] = ns2[succ2]
+        succ[ridx] = True
+    edges = pairs[succ]
+    QQ = _to_quat(Rs[succ])
+    n_matches = ns[succ]
+    stats["pairs_s"] = time.perf_counter() - t0
+    stats["pairs_total"] = len(pairs)
+    stats["pairs_connected"] = int(succ.sum())
+
+    # keep only the connected component containing keyframe 0 — a batch
+    # tool is more useful degrading gracefully than aborting (the
+    # reference exits on an unconnectable frame, src/ViewGraph.cpp:1083)
+    parent = list(range(K))
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    for a, b in edges:
+        ra, rb = find(int(a)), find(int(b))
+        if ra != rb:
+            parent[ra] = rb
+    root0 = find(0)
+    in_comp = np.array([find(i) == root0 for i in range(K)])
+    if not in_comp.all():
+        stats["dropped_keyframes"] = int((~in_comp).sum())
+        remap = -np.ones(K, np.int64)
+        remap[in_comp] = np.arange(int(in_comp.sum()))
+        keep_edge = in_comp[edges[:, 0]] & in_comp[edges[:, 1]]
+        edges = remap[edges[keep_edge]]
+        QQ = QQ[keep_edge]
+        n_matches = n_matches[keep_edge]
+        keyframes = [k_ for k_, ok in zip(keyframes, in_comp) if ok]
+        K = len(keyframes)
+        kf = np.asarray(keyframes)  # loop-closure stages index through kf
+
+    # -- stage 4: loop closure (optional) ------------------------------------
+    loop_edges = 0
+    loop_mask = np.zeros(len(edges), bool)
+    if vocab is not None:
+        t0 = time.perf_counter()
+        cand_pairs = _loop_candidates(vocab, desc, valid, kf, edges,
+                                      n_matches, cfg)
+        if cand_pairs:
+            cp = np.asarray(cand_pairs, np.int64)
+            rad = np.full(len(cp), LOOP_RADIUS, np.float32)
+            Rs2, ns2, succ2 = estimate_pairs(cp, rad, seed + LOOP_SEED)
+            ok = succ2 & (ns2 >= cfg.loop.min_matches)
+            if ok.any():
+                edges = np.concatenate([edges, cp[ok]])
+                QQ = np.concatenate([QQ, _to_quat(Rs2[ok])])
+                n_matches = np.concatenate([n_matches, ns2[ok]])
+                loop_edges = int(ok.sum())
+                loop_mask = np.concatenate(
+                    [loop_mask, np.ones(loop_edges, bool)])
+        stats["loop_s"] = time.perf_counter() - t0
+        stats["loop_candidate_pairs"] = len(cand_pairs)
+
+    # -- stage 5: global robust solve (f64) ----------------------------------
+    t0 = time.perf_counter()
+    order = np.lexsort((edges[:, 0], edges[:, 1]))
+    edges, QQ, n_matches = edges[order], QQ[order], n_matches[order]
+    loop_mask = loop_mask[order]
+    Q0 = np.zeros((K, 4))
+    Q0[0] = [0, 0, 0, 1]
+    Q0 = init_mst(Q0, QQ, edges, 1)
+    g = RotationGraph.create(edges, QQ, Q0, f=1, dtype=torch.float64,
+                             device=dev)
+    sol = cfg.solver
+    g = dataclasses.replace(
+        g, Q=l1ra(g, L1RAConfig(max_iters=sol.l1_iters,
+                                change_th=sol.change_th))[0])
+    Qf, _, iters, _ = irls(g, IRLSConfig(
+        cost=Cost.parse(sol.cost), sigma=math.radians(sol.sigma_deg),
+        max_iters=sol.irls_iters, change_th=sol.change_th, backend="dense"))
+    Qf = so3.qnormalize(Qf).cpu().numpy()
+    stats["solve_s"] = time.perf_counter() - t0
+    stats["irls_iters"] = int(iters)
+    stats["total_s"] = time.perf_counter() - t_start
+
+    return OfflineResult(
+        Q=Qf, keyframes=list(map(int, keyframes)), edges=edges, QQ=QQ,
+        n_matches=n_matches, loop_edges=loop_edges, loop_mask=loop_mask,
+        stats=stats)
+
+
+def _to_quat(R: np.ndarray) -> np.ndarray:
+    """(M, 3, 3) rotation matrices -> (M, 4) f64 quaternions [x y z w]."""
+    return so3.rotmat_to_quat(torch.as_tensor(R, dtype=torch.float64)
+                              ).numpy().reshape(-1, 4)
+
+
+def _loop_candidates(vocab, desc, valid, kf, edges, n_matches, cfg):
+    """(candidate, query) keyframe pairs that pass the inverted-file
+    cascade and the consecutive-group consistency (src/ViewGraph.cpp:
+    906-1033), the keyframes taken in order as the incremental engine
+    takes them."""
+    K = len(kf)
+    bows = []
+    for lo, hi in _chunks(K, BOW_CHUNK):      # one descent + one fetch each
+        idx = torch.as_tensor(kf[lo:hi], device=desc.device)
+        bows.extend(b for b, _ in vocab.transform_batch(desc[idx],
+                                                        valid[idx]))
+
+    adjacency: dict[int, dict[int, int]] = {}
+    for (a, b), nm in zip(edges, n_matches):
+        adjacency.setdefault(int(a), {})[int(b)] = int(nm)
+        adjacency.setdefault(int(b), {})[int(a)] = int(nm)
+
+    def covis(i, topn):
+        nb = adjacency.get(i, {})
+        return [v for v, _ in sorted(nb.items(), key=lambda kv: -kv[1])[:topn]]
+
+    db = ViewDatabase()
+    groups: list[tuple[set, int]] = []
+    cand_pairs = []
+    for k_i in range(K):
+        connected = set(adjacency.get(k_i, {}))
+        min_score = 1.0
+        for nb in connected:
+            min_score = min(min_score, bow_score(bows[k_i], bows[nb]))
+        cands = db.detect_loop_candidates(
+            query_id=k_i, bow=bows[k_i], connected=connected,
+            min_score=min_score, covisibility_fn=covis, score_fn=bow_score)
+        # consecutive-group consistency (src/ViewGraph.cpp:948-1033)
+        consistent = []
+        new_groups: list[tuple[set, int]] = []
+        prev_flag = [False] * len(groups)
+        for cand in cands:
+            group = set(adjacency.get(cand, {})) | {cand}
+            some = enough = False
+            for g, (pg, cnt) in enumerate(groups):
+                if group & pg:
+                    some = True
+                    cur = cnt + 1
+                    if not prev_flag[g]:
+                        new_groups.append((group, cur))
+                        prev_flag[g] = True
+                    if (cur >= cfg.loop.covisibility_consistency_th
+                            and not enough):
+                        consistent.append(cand)
+                        enough = True
+            if not some:
+                new_groups.append((group, 0))
+        groups = new_groups
+        cand_pairs.extend((cand, k_i) for cand in consistent)
+        db.add(k_i, bows[k_i])
+    return cand_pairs
