@@ -72,6 +72,16 @@ prints no result line):
    ``epipolar_nonode``, its RMSE is finite and at most 1.5x the JAX
    package's on the same frames, it makes a loop edge spanning more than
    10 keyframes, and 2 * its RMSE < phase 4's RMSE_B.
+8. distributed — ``parallel/`` at world size 1 over NCCL on phase 5b's
+   50k-view f64 problem: ``sharded_irls`` and ``sharded_ravg_pipeline``
+   against the single-device ``irls`` on the same schedules (equal IRLS
+   and CG iterations, max geodesic < 1e-6 deg with deterministic
+   kernels on both sides), the sharded solve's mean error within 0.01 deg
+   of the JAX f64 value, seconds; then the scaling probe at world size 1
+   (one card: no multi-GPU scaling is measured).
+9. vocabulary training — ``train_vocabulary_flat`` (k=10, L=5) on
+   descriptors sampled from phase 4's frames on the card, with its IDF
+   descent on the card and on the CPU: equal trees and weights; seconds.
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -1134,17 +1144,24 @@ def _sync_s(torch, fn):
 
 
 class _CountCG:
-    """Collects the iteration counts of every ``laplacian_cg_solve`` the
-    IRLS and L1-RA modules make inside the ``with`` block (device
-    tensors, summed at the end)."""
+    """Collects the iteration counts of every CG solve made inside the
+    ``with`` block (device tensors, summed at the end): by default the
+    ``laplacian_cg_solve`` calls of the IRLS and L1-RA modules; with
+    ``sharded=True`` the CG of ``parallel/sharded.py``."""
+
+    def __init__(self, sharded=False):
+        self._targets = ((("parallel.sharded",), "_graph_pcg") if sharded
+                         else (("solver.irls", "solver.l1ra"),
+                               "laplacian_cg_solve"))
 
     def __enter__(self):
         import importlib
 
         self.its = []
-        self._mods = [importlib.import_module(f"irotavg_tpu_torch.solver.{m}")
-                      for m in ("irls", "l1ra")]
-        orig = self._orig = self._mods[0].laplacian_cg_solve
+        mods, self._attr = self._targets
+        self._mods = [importlib.import_module(f"irotavg_tpu_torch.{m}")
+                      for m in mods]
+        orig = self._orig = getattr(self._mods[0], self._attr)
 
         def counting(*a, **kw):
             x, it = orig(*a, **kw)
@@ -1152,12 +1169,12 @@ class _CountCG:
             return x, it
 
         for m in self._mods:
-            m.laplacian_cg_solve = counting
+            setattr(m, self._attr, counting)
         return self
 
     def __exit__(self, *exc):
         for m in self._mods:
-            m.laplacian_cg_solve = self._orig
+            setattr(m, self._attr, self._orig)
 
     def total(self):
         return int(sum(int(i) for i in self.its))
@@ -1382,6 +1399,169 @@ def phase_solver(card, out):
     phase_windows(card)
 
 
+# -- phase 8: the distributed solver ------------------------------------------
+
+# the sharded solve at world size 1 against the single-device solve
+DIST_TOL_DEG = 1e-6
+DIST_L1_ITERS = 5             # sharded_ravg_pipeline's default warmup
+
+
+def _mean_err_deg(Q, Q_gt):
+    from irotavg_tpu_torch import so3
+
+    Qn = so3.qnormalize(Q).cpu().numpy()
+    return float(np.degrees(2 * np.arccos(np.clip(
+        np.abs(np.sum(Qn * Q_gt, axis=-1)), -1, 1))).mean())
+
+
+def phase_distributed(card, out):
+    """8. ``parallel/`` on the card: phase 5b's 50k-view f64 problem
+    through ``sharded_irls`` and ``sharded_ravg_pipeline`` at world size 1
+    over NCCL, against the single-device ``irls`` on the same schedules,
+    then the scaling probe at world size 1.  CUDA's atomic ``index_add_``
+    sums in a different order on every run, which moves this problem's
+    solve by up to 2.3e-5 deg between two runs (measured on an NVIDIA H100
+    80GB HBM3 at 700 W), so the < 1e-6 deg check runs both sides
+    under ``torch.use_deterministic_algorithms``; a second pass in the
+    default mode is timed and held to the JAX mean error."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from irotavg_tpu_torch import so3
+    from irotavg_tpu_torch.parallel import (
+        init_multihost, make_graph_mesh, scaling_probe, shard_graph,
+        sharded_irls, sharded_ravg_pipeline,
+    )
+    from irotavg_tpu_torch.solver.irls import Cost, irls
+
+    dev = _device(torch)
+    p, g, cfg = large_problem(dev)
+    os.makedirs(out, exist_ok=True)
+    store = os.path.abspath(os.path.join(out, "dist_store"))
+    if os.path.exists(store):
+        os.remove(store)
+    init_multihost(init_method=f"file://{store}", num_processes=1,
+                   process_id=0, device=dev)
+    try:
+        mesh = make_graph_mesh(1, device=dev)
+        gs = shard_graph(g, mesh)
+        l1_cfg = dataclasses.replace(cfg, cost=Cost.L1,
+                                     max_iters=DIST_L1_ITERS)
+
+        def single_pipeline():
+            Q1, _, it1, _ = irls(g, l1_cfg)
+            Q2, w, it2, s = irls(dataclasses.replace(g, Q=Q1), cfg)
+            return so3.qnormalize(Q2), w, it1 + it2, s
+
+        solves = (
+            ("irls", lambda: irls(g, cfg), False),
+            ("sharded_irls", lambda: sharded_irls(mesh, cfg)(gs), True),
+            ("two-phase irls", single_pipeline, False),
+            ("sharded_ravg_pipeline", lambda: sharded_ravg_pipeline(
+                mesh, l1_iters=DIST_L1_ITERS, cfg=cfg)(gs), True))
+        runs = {}
+        for mode in ("deterministic", "default"):
+            torch.use_deterministic_algorithms(mode == "deterministic",
+                                               warn_only=True)
+            try:
+                for name, fn, sharded in solves:
+                    mesh.all_reduces = 0
+                    with _CountCG(sharded) as cg:
+                        (Q, _w, iters, _s), secs = _sync_s(torch, fn)
+                    runs[mode, name] = (Q, iters, cg.total(), secs,
+                                        mesh.all_reduces)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        print(f"[dist] world size {mesh.size}, backend "
+              f"{dist.get_backend()}, 50k problem: {LARGE_N} views, {g.m} "
+              f"edges, f64  ({card})")
+        failures = []
+        for mode in ("deterministic", "default"):
+            for single, sharded in (("irls", "sharded_irls"),
+                                    ("two-phase irls",
+                                     "sharded_ravg_pipeline")):
+                Qa, ia, ca, sa, _ = runs[mode, single]
+                Qb, ib, cb, sb, nb = runs[mode, sharded]
+                geo = float(geo_deg(Qa.cpu().numpy(), Qb.cpu().numpy()).max())
+                err = _mean_err_deg(Qb, p["Q_gt"])
+                print(f"[dist] {mode}: {sharded} IRLS iterations {ib}, CG "
+                      f"iterations {cb}, {nb} all_reduces, {sb:.3f} s; "
+                      f"{single} {ia} / {ca}, {sa:.3f} s; max geodesic "
+                      f"{geo:.3e} deg; mean error vs GT {err:.10f} deg  "
+                      f"({card})")
+                if mode == "deterministic" and not (
+                        ia == ib and ca == cb and geo < DIST_TOL_DEG):
+                    failures.append(f"{sharded} ({mode}): iterations "
+                                    f"{ib}/{cb} vs {ia}/{ca}, geodesic {geo}")
+                if sharded == "sharded_irls" and abs(
+                        err - LARGE_JAX_F64_MEAN_ERR_DEG) >= LARGE_TOL_DEG:
+                    failures.append(f"sharded_irls ({mode}) mean error {err} "
+                                    f"deg not within {LARGE_TOL_DEG} of "
+                                    f"{LARGE_JAX_F64_MEAN_ERR_DEG}")
+        if failures:
+            raise SmokeError("distributed solve: " + "; ".join(failures))
+    finally:
+        dist.destroy_process_group()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = scaling_probe.main(["--device", "cuda", "--devices", "1"])
+    if rc != 0:
+        raise SmokeError(f"scaling_probe returned {rc}")
+    print(f"[dist] scaling probe (one card; no multi-GPU scaling measured): "
+          f"{buf.getvalue().strip()}  ({card})")
+
+
+# -- phase 9: vocabulary training ---------------------------------------------
+
+# the shipped vocabulary's shape (k=10, L=5: 100k words), trained on every
+# fourth frame of phase 4's sequence, at most 400 descriptors a frame
+VOCAB_TRAIN = dict(k=10, L=5, seed=0, iters=6)
+VOCAB_SAMPLE = dict(batch=8, cap=400, stride=4)
+
+
+def phase_vocab_training(card, seq):
+    """9. ``train_vocabulary_flat`` on descriptors sampled from phase 4's
+    frames (``frontend/prefetch.py:sample_descriptors`` on the card),
+    with its IDF descent on the card and again on the CPU: equal trees
+    and weights."""
+    import torch
+
+    from irotavg_tpu_torch.frontend.orb import ORBExtractor
+    from irotavg_tpu_torch.frontend.prefetch import sample_descriptors
+    from irotavg_tpu_torch.placerec.vocabulary import train_vocabulary_flat
+    from irotavg_tpu_torch.utils.sequence import load_gray
+
+    dev = _device(torch)
+    images = [(lambda p=os.path.join(seq, n): load_gray(p))
+              for n in sorted(os.listdir(seq))]
+    ext = ORBExtractor(n_features=2000, n_levels=8, device=dev)
+    sample, t_sample = _sync_s(torch, lambda: sample_descriptors(
+        images, ext, **VOCAB_SAMPLE))
+    vocabs = []
+    for where in (dev, torch.device("cpu")):
+        v, secs = _sync_s(torch, lambda: train_vocabulary_flat(
+            sample, device=where, **VOCAB_TRAIN))
+        vocabs.append(v)
+        print(f"[vocab] train_vocabulary_flat k={VOCAB_TRAIN['k']} "
+              f"L={VOCAB_TRAIN['L']} on {sum(map(len, sample))} descriptors "
+              f"of {len(sample)} frames, IDF descent on {where.type}: "
+              f"{secs:.3f} s  ({card})")
+    a, b = vocabs
+    same = all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+        "children", "node_desc", "word_id", "is_leaf", "weight"))
+    print(f"[vocab] sampled in {t_sample:.3f} s ({VOCAB_SAMPLE}); "
+          f"{a.n_words} words, {int((a.weight > 0).sum())} with a positive "
+          f"IDF weight; card and CPU trees and weights equal: {same}  "
+          f"({card})")
+    if not same or not (a.weight > 0).any():
+        raise SmokeError("vocabulary training differs between the card's "
+                         "and the CPU's IDF descent, or has no weight")
+
+
 # -- phase 6: checkpoint / resume ---------------------------------------------
 
 
@@ -1460,8 +1640,10 @@ def main(argv=None) -> int:
         offline_launches, offline_by_gate = phase_offline(
             card, os.path.join(args.out, "loop"), seq, yaml, vocab, R_gt,
             rmse_b)
+        phase_vocab_training(card, seq)
         shutil.rmtree(frames.pop())
         phase_solver(card, os.path.join(args.out, "solver"))
+        phase_distributed(card, os.path.join(args.out, "dist"))
         resume_launches, resume_by_gate = phase_resume(card, args.out,
                                                        *phase3)
     except SmokeError as e:

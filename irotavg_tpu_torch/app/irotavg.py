@@ -13,7 +13,12 @@ or ``none`` to run without place recognition.  ``--device`` is ``cuda``
 by default; without a card the CLI exits 2 unless given ``--device cpu``.
 ``--prefetch B`` (default 8) extracts the frames ``B`` at a time in one
 batched pyramid (``frontend/prefetch.py``); 0 or 1 extracts one frame at
-a time.  Every engine decision is the same either way.
+a time.  Without lens distortion the frames are bit-identical either
+way, so is every engine decision.  With distortion the batched path
+undistorts the keypoints on the device in f32 and the per-frame path on
+the host in f64, as the JAX package does; the two agree to 1e-3 px, so a
+decision at a threshold may differ (tests/test_torch_prefetch.py holds
+the keyframes of the two widths equal on one distorted sequence).
 
 Per frame: Frame creation (extract + undistort + BoW) ->
 ViewGraph.process_frame (skip if not a keyframe) -> loop closure
@@ -60,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefetch", type=int, default=8, metavar="B",
                    help="batched extraction width (frames per batch); 0/1 "
                         "extracts per frame like the reference.  Engine "
-                        "decisions are identical either way")
+                        "decisions are identical either way without lens "
+                        "distortion; with it keypoints agree to 1e-3 px")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--checkpoint", action="store_true",

@@ -278,19 +278,7 @@ def run_offline(images, camera, extractor, *, vocab=None,
     order = np.lexsort((edges[:, 0], edges[:, 1]))
     edges, QQ, n_matches = edges[order], QQ[order], n_matches[order]
     loop_mask = loop_mask[order]
-    Q0 = np.zeros((K, 4))
-    Q0[0] = [0, 0, 0, 1]
-    Q0 = init_mst(Q0, QQ, edges, 1)
-    g = RotationGraph.create(edges, QQ, Q0, f=1, dtype=torch.float64,
-                             device=dev)
-    sol = cfg.solver
-    g = dataclasses.replace(
-        g, Q=l1ra(g, L1RAConfig(max_iters=sol.l1_iters,
-                                change_th=sol.change_th))[0])
-    Qf, _, iters, _ = irls(g, IRLSConfig(
-        cost=Cost.parse(sol.cost), sigma=math.radians(sol.sigma_deg),
-        max_iters=sol.irls_iters, change_th=sol.change_th, backend="dense"))
-    Qf = so3.qnormalize(Qf).cpu().numpy()
+    Qf, iters = solve_global(edges, QQ, K, cfg, dev)
     stats["solve_s"] = time.perf_counter() - t0
     stats["irls_iters"] = int(iters)
     stats["total_s"] = time.perf_counter() - t_start
@@ -299,6 +287,25 @@ def run_offline(images, camera, extractor, *, vocab=None,
         Q=Qf, keyframes=list(map(int, keyframes)), edges=edges, QQ=QQ,
         n_matches=n_matches, loop_edges=loop_edges, loop_mask=loop_mask,
         stats=stats)
+
+
+def solve_global(edges, QQ, K, cfg: PipelineConfig, device):
+    """Stage 5: spanning-tree init, L1-RA, then IRLS (dense, f64) over
+    ``K`` keyframes, keyframe 0 fixed.  Returns (Q (K, 4) [x y z w],
+    IRLS iterations)."""
+    Q0 = np.zeros((K, 4))
+    Q0[0] = [0, 0, 0, 1]
+    Q0 = init_mst(Q0, QQ, edges, 1)
+    g = RotationGraph.create(edges, QQ, Q0, f=1, dtype=torch.float64,
+                             device=device)
+    sol = cfg.solver
+    g = dataclasses.replace(
+        g, Q=l1ra(g, L1RAConfig(max_iters=sol.l1_iters,
+                                change_th=sol.change_th))[0])
+    Qf, _, iters, _ = irls(g, IRLSConfig(
+        cost=Cost.parse(sol.cost), sigma=math.radians(sol.sigma_deg),
+        max_iters=sol.irls_iters, change_th=sol.change_th, backend="dense"))
+    return so3.qnormalize(Qf).cpu().numpy(), iters
 
 
 def _to_quat(R: np.ndarray) -> np.ndarray:

@@ -1,9 +1,11 @@
 """L3b — place recognition: a DBoW2-compatible vocabulary with a batched
 tree descent on the frames' device, sparse BoW vectors, the six DBoW2
 scorers, and an inverted-file database with the reference's
-loop-candidate cascade (port of ``irotavg_tpu/placerec``; vocabulary
-training stays in the JAX package)."""
+loop-candidate cascade, and the two vocabulary trainers (port of
+``irotavg_tpu/placerec``)."""
 
 from irotavg_tpu_torch.placerec.bow import bow_score  # noqa: F401
 from irotavg_tpu_torch.placerec.database import ViewDatabase  # noqa: F401
-from irotavg_tpu_torch.placerec.vocabulary import Vocabulary  # noqa: F401
+from irotavg_tpu_torch.placerec.vocabulary import (  # noqa: F401
+    Vocabulary, train_vocabulary, train_vocabulary_flat,
+)

@@ -89,6 +89,33 @@ class RotationGraph:
             node_mask=torch.as_tensor(node_mask, device=device).bool(),
         )
 
+    def pad_to(self, m_pad: int, n_pad: int) -> "RotationGraph":
+        """Pad to ``m_pad`` edges and ``n_pad`` nodes: masked edges
+        ``(0, 0)`` with identity rotations and masked identity nodes
+        (``irotavg_tpu/solver/graph.py:83``).  Refuses to shrink."""
+        if m_pad < self.m or n_pad < self.n:
+            raise ValueError("pad_to cannot shrink the problem")
+        dm, dn = m_pad - self.m, n_pad - self.n
+
+        def grow(t, d, fill):
+            pad = torch.full(t.shape[:-2] + (d,) + t.shape[-1:], fill,
+                             dtype=t.dtype, device=t.device)
+            return torch.cat([t, pad], dim=-2)
+
+        def ident(t, d):
+            out = grow(t, d, 0)
+            out[..., t.shape[-2]:, 3] = 1
+            return out
+
+        def unmask(t, d):
+            return grow(t[..., None], d, False)[..., 0]
+
+        return RotationGraph(
+            edges=grow(self.edges, dm, 0), QQ=ident(self.QQ, dm),
+            Q=ident(self.Q, dn), f=self.f,
+            edge_mask=unmask(self.edge_mask, dm),
+            node_mask=unmask(self.node_mask, dn))
+
 
 def _add_rows(out, idx, e):
     """``out[idx] += e`` row by row, per batch entry."""
@@ -117,18 +144,32 @@ def incidence_rmatvec(edges, e, free_mask, edge_mask, n):
     return torch.where(free_mask[..., None], out, torch.zeros_like(out))
 
 
-def _diag(edges, c, free_mask, n):
-    """Diagonal of ``A' diag(c) A`` for masked coefficients ``c (*B, m,
-    k)``, one column per ``k``; 1 where a node is fixed or has no weight."""
+def diag_partial(edges, c, n):
+    """The raw diagonal of ``A' diag(c) A`` for masked coefficients ``c
+    (*B, m, k)``, one column per ``k``, before :func:`guard_diag`: the
+    sum over ``edges`` only, so that the partials of disjoint edge blocks
+    add up to the whole graph's (``parallel/sharded.py`` reduces them
+    over the ranks, then guards)."""
     d = torch.zeros(c.shape[:-2] + (n, c.shape[-1]), dtype=c.dtype,
                     device=c.device)
     _add_rows(d, edges[..., 0], c)
     _add_rows(d, edges[..., 1], c)
+    return d
+
+
+def guard_diag(d, free_mask):
+    """1 where a node is fixed or has no weight, ``d`` elsewhere."""
     # d == 0 on a free node (every incident weight zero, e.g. Talwar
     # marking each neighbour an outlier): a unit diagonal keeps the
     # preconditioner finite, and with rhs == 0 there CG leaves the node
     # at zero update (the reference's SPQR minimum-norm behaviour)
     return torch.where(free_mask[..., None] & (d > 0), d, torch.ones_like(d))
+
+
+def _diag(edges, c, free_mask, n):
+    """Diagonal of ``A' diag(c) A`` for masked coefficients ``c (*B, m,
+    k)``, one column per ``k``; 1 where a node is fixed or has no weight."""
+    return guard_diag(diag_partial(edges, c, n), free_mask)
 
 
 def laplacian_diag(edges, coef, free_mask, edge_mask, n):

@@ -51,7 +51,9 @@ def test_port_imports_without_jax_or_triton():
             "irotavg_tpu_torch.entry",
             "irotavg_tpu_torch.frontend.prefetch",
             "irotavg_tpu_torch.pipeline.offline",
-            "irotavg_tpu_torch.app.irotavg_batch"} <= set(out["names"])
+            "irotavg_tpu_torch.app.irotavg_batch",
+            "irotavg_tpu_torch.parallel.sharded",
+            "irotavg_tpu_torch.parallel.scaling_probe"} <= set(out["names"])
     assert out["bad"] == [], f"imported at import time: {out['bad']}"
 
 

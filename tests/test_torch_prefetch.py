@@ -221,3 +221,74 @@ def test_cli_prefetch_widths_agree(tmp_path):
                    ("rotavg_poses.txt", "rotavg_poses_ids.txt")]
     assert len(outs[4][1].split()) >= 4
     assert outs[4] == outs[1]
+
+
+def _write_seq(tmp_path, frames, K, k1=0.0, k2=0.0):
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    for i, im in enumerate(frames):
+        write_pgm(str(seq / f"{i:06d}.pgm"), im)
+    yaml = tmp_path / "cam.yaml"
+    yaml.write_text(
+        "%YAML:1.0\n"
+        f"Camera.fx: {K[0, 0]}\nCamera.fy: {K[1, 1]}\n"
+        f"Camera.cx: {K[0, 2]}\nCamera.cy: {K[1, 2]}\n"
+        f"Camera.k1: {k1}\nCamera.k2: {k2}\nCamera.p1: 0.0\n"
+        "Camera.p2: 0.0\n"
+        "ORBextractor.nFeatures: 800\nORBextractor.scaleFactor: 1.2\n"
+        "ORBextractor.nLevels: 8\nORBextractor.iniThFAST: 20\n"
+        "ORBextractor.minThFAST: 7\n")
+    return seq, yaml
+
+
+K1, K2 = -0.12, 0.02      # barrel distortion of a wide-angle lens
+
+
+def test_lens_distortion_paths_match_jax_and_cli_widths(tmp_path):
+    """k1 != 0.  The batched path undistorts on the device in f32 and the
+    per-frame path on the host in f64, in the port as in the JAX package
+    (``irotavg_tpu/frontend/prefetch.py:27``, ``frontend/frame.py``).
+    Each of the port's paths matches the JAX package's same path on the
+    same frames within 1e-3 px.  The CLI at ``--prefetch 8`` and
+    ``--prefetch 1`` then makes the same keyframe decisions on this
+    sequence; the poses are not compared (the two undistortions differ
+    by up to 1e-3 px, so the solves may differ in the last digits)."""
+    frames, K, _ = make_sequence(n_frames=6, seed=1, step=0.3,
+                                 yaw_deg_per_frame=-1.0)
+    h, w = frames[0].shape
+    kw = dict(fx=K[0, 0], fy=K[1, 1], cx=K[0, 2], cy=K[1, 2], k1=K1, k2=K2,
+              width=w, height=h)
+    cam, jcam = Camera(**kw), JaxCamera(**kw)
+    ext = ORBExtractor(n_features=800, n_levels=8, device="cpu")
+    jext = JaxORB(n_features=800, n_levels=8)
+    pf = FramePrefetcher(frames, ext, cam, batch=8)
+    jpf = JaxPrefetcher(frames, jext, jcam, batch=8)
+    for i in (0, 3, 5):
+        batched, jbatched = pf.frame(i), jpf.frame(i)
+        one, jone = Frame(i, frames[i], ext, cam), _jax_frame(i, frames[i],
+                                                              jext, jcam)
+        for got, want, path in ((batched, jbatched, "batched"),
+                                (one, jone, "per-frame")):
+            np.testing.assert_array_equal(got.x, np.asarray(want.x))
+            assert not np.allclose(got.xu, got.x), path
+            for k in ("xu", "yu"):
+                np.testing.assert_allclose(getattr(got, k),
+                                           np.asarray(getattr(want, k)),
+                                           atol=1e-3, err_msg=f"{path} {k}")
+
+    seq, yaml = _write_seq(tmp_path, frames, K, k1=K1, k2=K2)
+    ids = {}
+    for b in (8, 1):
+        out = tmp_path / f"out{b}"
+        assert port_cli.main(["none", str(yaml), str(seq), "--image_ext",
+                              ".pgm", "--out_dir", str(out), "--prefetch",
+                              str(b), "--device", "cpu"]) == 0
+        ids[b] = (out / "rotavg_poses_ids.txt").read_text()
+    assert len(ids[8].split()) >= 4
+    assert ids[8] == ids[1]
+
+
+def _jax_frame(i, image, extractor, camera):
+    from irotavg_tpu.frontend import Frame as JaxFrame
+
+    return JaxFrame(i, image, extractor, camera)
