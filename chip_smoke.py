@@ -82,6 +82,26 @@ prints no result line):
 9. vocabulary training — ``train_vocabulary_flat`` (k=10, L=5) on
    descriptors sampled from phase 4's frames on the card, with its IDF
    descent on the card and on the CPU: equal trees and weights; seconds.
+10. surfaces — on phase 3's first two frames (2000 ORB features,
+   extracted on the card), launch counters reset just before: the
+   Frame-level ``match_locally``, ``match_by_bow`` without node ids
+   (gate ``none``) and with phase 4's vocabulary (``node``),
+   ``find_relative_pose``, ``match_epipolar`` with its F (``epipolar``
+   and ``epipolar_nonode``) and ``refine_pose`` for three seeds; every
+   matcher equal row for row to the same call on the frames' tensors
+   moved to the CPU, the refined support >= the initial, the refined R
+   within 0.5 deg of the CPU's calls (median over the seeds).
+   ``hamming_matrix`` at 2000x2000 equal to the CPU's, its row minima
+   the kernel's ``d1`` under ``none``.  ``SIFTExtractor`` (2000
+   features, 4 octaves) on the card against the CPU: >= 99% of the CPU's
+   keypoints at the same (octave, x0, y0), descriptors within 1e-3 on >=
+   98% of them, ``match_sift`` equal on >= 99% of rows; extraction ms.
+   Then the CLI with ``--plot_matches`` on the first 20 frames, and with
+   it and ``--trace_dir`` on the first 3 (a trace grows by tens of MB a
+   frame):
+   one decodable side-by-side PNG per connected consecutive keyframe
+   pair, phase 3's first keyframes, and a ``torch.profiler`` trace naming
+   ``match_best2_kernel`` among its CUDA kernel events.
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -167,6 +187,21 @@ PREFETCH_ANGLE_TOL = 1e-5
 JAX_OFFLINE_RMSE_DEG = 1.2757557007946743
 JAX_OFFLINE_LOOP_EDGES = 137
 OFFLINE_RMSE_FACTOR = 1.5
+# phase 10: SIFT agreement card vs CPU, the two-view tolerance, the CLI
+# run's frames and the kernel's symbol in the trace
+SIFT_KEYPOINT_SHARE = 0.99
+SIFT_DESC_TOL = 1e-3
+SIFT_DESC_SHARE = 0.98
+SIFT_MATCH_SHARE = 0.99
+# one RANSAC at this small baseline lands on different models from seed
+# to seed on one device (see the supports printed per seed), so the two
+# devices' poses are compared after refine_pose, by their median over
+# the seeds
+TWOVIEW_TOL_DEG = 0.5
+TWOVIEW_SEEDS = (0, 1, 2)
+SURFACE_CLI_FRAMES = 20
+SURFACE_TRACE_FRAMES = 3
+KERNEL_SYMBOL = "match_best2_kernel"
 
 
 class SmokeError(RuntimeError):
@@ -1609,6 +1644,264 @@ def phase_resume(card, out, seq, gt, yaml, full):
     return la + lb, {"part1": gate_a, "part2": gate_b}
 
 
+# -- phase 10: the remaining public surfaces ----------------------------------
+
+
+def _sift_agreement(card_out, cpu_out):
+    """(share of the CPU's valid keypoints found by the card at the same
+    (octave, x0, y0), share of those with descriptors within
+    SIFT_DESC_TOL, worst descriptor error)."""
+    def keyed(o):
+        o = {k: v.cpu().numpy() for k, v in o.items()}
+        return o, {(int(a), float(x), float(y)): i for i, (a, x, y, v) in
+                   enumerate(zip(o["octave"], o["x0"], o["y0"], o["valid"]))
+                   if v}
+
+    g, kg = keyed(card_out)
+    c, kc = keyed(cpu_out)
+    common = sorted(set(kg) & set(kc))
+    if not kc or not common:
+        raise SmokeError("SIFT found no keypoints on the card or the CPU")
+    ig = np.array([kg[k] for k in common])
+    ic = np.array([kc[k] for k in common])
+    err = np.abs(g["desc"][ig] - c["desc"][ic]).max(axis=1)
+    return (len(common) / len(kc), float((err <= SIFT_DESC_TOL).mean()),
+            float(err.max()))
+
+
+def _trace_kernels(trace_dir):
+    """(trace file, its size in bytes, events, names of its CUDA kernel
+    events)."""
+    files = sorted(os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+                   if f.endswith(".pt.trace.json"))
+    if len(files) != 1:
+        raise SmokeError(f"--trace_dir wrote {len(files)} trace files")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    return files[0], os.path.getsize(files[0]), len(events), kernels
+
+
+def phase_surfaces(card, out, seq, yaml, vocab_path, res3):
+    """10. The Frame-level matchers, the two-view API, ``hamming_matrix``,
+    SIFT and ``match_sift`` on the card against the same calls on the
+    CPU, then the CLI's ``--plot_matches`` and ``--trace_dir``.  Returns
+    (launches, launches by gate) of the matcher and two-view calls and of
+    the CLI run."""
+    import torch
+
+    from irotavg_tpu_torch.frontend.camera import Camera
+    from irotavg_tpu_torch.frontend.frame import Frame
+    from irotavg_tpu_torch.frontend.orb import ORBExtractor
+    from irotavg_tpu_torch.frontend.sift import SIFTExtractor
+    from irotavg_tpu_torch.geometry.twoview import (
+        find_relative_pose, refine_pose,
+    )
+    from irotavg_tpu_torch.matching import matchers
+    from irotavg_tpu_torch.ops import match
+    from irotavg_tpu_torch.ops.hamming import hamming_matrix
+    from irotavg_tpu_torch.placerec.vocabulary import Vocabulary
+    from irotavg_tpu_torch.utils.sequence import load_gray
+    from irotavg_tpu_torch.utils.viz import read_png
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cpu = torch.device("cpu")
+    fx, fy, cx, cy = KITTI_K
+    cam = Camera(fx=fx, fy=fy, cx=cx, cy=cy, width=KITTI_W, height=KITTI_H)
+    K_inv = np.linalg.inv(cam.K)
+    imgs = [load_gray(os.path.join(seq, f"{i:06d}.pgm")) for i in (0, 1)]
+    ext = ORBExtractor(n_features=2000, n_levels=8, device=dev)
+    vocab = Vocabulary.load_text(vocab_path, device=dev)
+    keys = ("x", "y", "xu", "yu", "octave", "angle", "response", "size",
+            "desc", "valid")
+
+    def on(device, frames):
+        """The frames' features as Frames on ``device`` (node ids kept)."""
+        return [Frame.restore(f.id, cam, {k: getattr(f, k) for k in keys},
+                              feat_nodes=f.feat_nodes, device=device)
+                for f in frames]
+
+    card_plain = [Frame(i, im, ext, cam) for i, im in enumerate(imgs)]
+    card_nodes = [Frame(i, im, ext, cam, vocab=vocab)
+                  for i, im in enumerate(imgs)]
+    torch.cuda.synchronize()
+
+    def calls(plain, nodes, F=None):
+        """Every Frame-level call of this phase on one device's frames:
+        the matchers, then the two-view API for each of TWOVIEW_SEEDS."""
+        f0, f1 = plain
+        out = {"local": matchers.match_locally(f1, f0),
+               "bow_none": matchers.match_by_bow(f0, f1),
+               "bow_node": matchers.match_by_bow(*nodes)}
+        pairs = matchers.matches_to_pairs(matchers.match_locally(f0, f1))
+        poses = []
+        for seed in TWOVIEW_SEEDS:
+            rel0 = find_relative_pose(f0, f1, pairs, cam, seed=seed)
+            if rel0 is None:
+                raise SmokeError(f"find_relative_pose failed on "
+                                 f"{f0.device} (seed {seed})")
+            inl = pairs[rel0.inlier_mask]
+            rel1, pairs1 = refine_pose(f0, f1, rel0, inl, cam, seed=seed + 1)
+            poses.append((rel0, rel1, len(inl), len(pairs1)))
+        if F is None:          # the card's F gates both devices' matchers
+            F = K_inv.T @ poses[0][0].E @ K_inv
+        out["epipolar_nonode"] = matchers.match_epipolar(f0, f1, F)
+        out["epipolar"] = matchers.match_epipolar(*nodes, F)
+        return out, F, poses
+
+    match.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, F, poses = calls(card_plain, card_nodes)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launches = match.best2.launches
+    by_gate = dict(match.best2.launches_by_gate)
+    t0 = time.perf_counter()
+    ref, _, poses_c = calls(on(cpu, card_plain), on(cpu, card_nodes), F)
+    t_cpu = time.perf_counter() - t0
+    for name, m in got.items():
+        if not np.array_equal(m, ref[name]):
+            raise SmokeError(f"{name}: the card's assignment differs from "
+                             f"the CPU's in {int((m != ref[name]).sum())} "
+                             f"rows")
+    counts = {k: int((v >= 0).sum()) for k, v in got.items()}
+    print(f"[surfaces] Frame-level matchers on 2000 ORB features, equal to "
+          f"the CPU row for row; matches {json.dumps(counts)}; launches "
+          f"{launches}, by gate {json.dumps(by_gate)}; card {t_card:.2f} s, "
+          f"CPU {t_cpu:.2f} s  ({card})")
+    d_find, d_refine = [], []
+    for seed, (a0, a1, n0, n1), (b0, b1, m0, m1) in zip(
+            TWOVIEW_SEEDS, poses, poses_c):
+        d_find.append(geo_deg_R(a0.R, b0.R))
+        d_refine.append(geo_deg_R(a1.R, b1.R))
+        print(f"[surfaces] seed {seed}: find_relative_pose support {n0} / "
+              f"CPU {m0}, R {d_find[-1]:.4f} deg apart; refine_pose "
+              f"{n0} -> {n1} / CPU {m0} -> {m1}, R {d_refine[-1]:.4f} deg "
+              f"apart  ({card})")
+        if n1 < n0 or m1 < m0:
+            raise SmokeError("refine_pose lost support")
+    if not np.median(d_refine) < TWOVIEW_TOL_DEG:
+        raise SmokeError(f"refined poses {d_refine} deg from the CPU's")
+    for gate in match.GATES:
+        if by_gate[gate] <= 0:
+            raise SmokeError(f"phase 10 never launched the {gate!r} gate")
+
+    # the dense FORB distance, against the CPU and the kernel's d1
+    d0, d1 = (f.dev("desc") for f in card_plain)
+    ham = hamming_matrix(d0, d1)
+    ham_cpu = hamming_matrix(d0.cpu(), d1.cpu())
+    ones = torch.ones(d0.shape[0], dtype=torch.bool, device=dev)
+    k_d1, _, _ = match.best2(d0, d1, match.make_rowf(ones),
+                             match.make_colf(ones), "none")
+    same_cpu = torch.equal(ham.cpu(), ham_cpu)
+    same_d1 = torch.equal(ham.min(dim=1).values.float(), k_d1)
+    ham_ms = _median_ms(torch, lambda: hamming_matrix(d0, d1), reps=10)
+    print(f"[surfaces] hamming_matrix {tuple(ham.shape)}: equal to the CPU "
+          f"{same_cpu}, row minima equal to the kernel's d1 (gate none) "
+          f"{same_d1}; {ham_ms:.3f} ms (median of 10)  ({card})")
+    if not (same_cpu and same_d1):
+        raise SmokeError("hamming_matrix disagrees with the CPU or the "
+                         "kernel")
+
+    # SIFT on the card against the CPU, and match_sift
+    sift = SIFTExtractor(device=dev)
+    sift_cpu = SIFTExtractor(device="cpu")
+    s_card = [sift(im) for im in imgs]
+    s_cpu = sift_cpu(imgs[0])
+    kp_share, desc_share, worst = _sift_agreement(s_card[0], s_cpu)
+    sframes = [Frame.from_extracted(i, o, cam) for i, o in enumerate(s_card)]
+    m_card = matchers.match_sift(*sframes)
+    m_cpu = matchers.match_sift(*[Frame.from_extracted(
+        i, {k: v.cpu() for k, v in o.items()}, cam)
+        for i, o in enumerate(s_card)])
+    rows = s_card[0]["valid"].cpu().numpy()
+    m_share = float((m_card == m_cpu)[rows].mean())
+    img_dev = torch.from_numpy(imgs[0]).to(dev)
+    sift_ms = _median_ms(torch, lambda: sift(img_dev), reps=10)
+    n_valid = int(s_card[0]["valid"].sum())
+    print(f"[surfaces] SIFT 2000 features, {len(s_card[0]['valid'])} slots, "
+          f"{n_valid} valid on the card: {kp_share:.4f} of the CPU's "
+          f"keypoints at the same (octave, x0, y0), descriptors within "
+          f"{SIFT_DESC_TOL} on {desc_share:.4f} of them (worst "
+          f"{worst:.3e}); match_sift valid rows equal to the CPU's "
+          f"{m_share:.4f} "
+          f"({int((m_card >= 0).sum())} matches)  ({card})")
+    print(f"[surfaces] SIFT extraction {sift_ms:.3f} ms a frame "
+          f"({KITTI_W}x{KITTI_H}, median of 10, CUDA events)  ({card})")
+    if kp_share < SIFT_KEYPOINT_SHARE or desc_share < SIFT_DESC_SHARE \
+            or m_share < SIFT_MATCH_SHARE:
+        raise SmokeError("SIFT on the card disagrees with the CPU")
+
+    # the CLI: --plot_matches on the first 20 frames, then both flags on
+    # the first 3 (a trace grows by tens of MB a frame)
+    sub = os.path.join(out, "surfaces")
+    names = sorted(os.listdir(seq))
+    runs = {}
+    for tag, n_frames, extra in (
+            ("plot", SURFACE_CLI_FRAMES, []),
+            ("trace", SURFACE_TRACE_FRAMES, ["--trace_dir"])):
+        d = os.path.join(sub, tag)
+        os.makedirs(os.path.join(d, "seq"), exist_ok=True)
+        for name in names[:n_frames]:
+            shutil.copy(os.path.join(seq, name), os.path.join(d, "seq"))
+        argv = ["none", yaml, os.path.join(d, "seq"), "--image_ext", ".pgm",
+                "--out_dir", os.path.join(d, "out"), "--device", "cuda",
+                "--plot_matches", os.path.join(d, "plots")]
+        if extra:
+            argv += extra + [os.path.join(d, "trace")]
+        _, wall, n, gates, _ = run_cli(argv, d, f"irotavg_{tag}")
+        with open(os.path.join(d, "out", "rotavg_poses_ids.txt")) as fh:
+            ids = [int(v) for v in fh.read().split()]
+        pngs = sorted(os.listdir(os.path.join(d, "plots")))
+        shapes = {read_png(os.path.join(d, "plots", p)).shape for p in pngs}
+        runs[tag] = dict(d=d, wall=wall, launches=n, by_gate=gates, ids=ids,
+                         pngs=pngs, shapes=shapes, frames=n_frames)
+    with open(os.path.join(res3, "rotavg_poses_ids.txt")) as fh:
+        ids3 = [int(v) for v in fh.read().split()]
+    path, size, n_events, kernels = _trace_kernels(
+        os.path.join(runs["trace"]["d"], "trace"))
+    named = sorted(k for k in kernels if KERNEL_SYMBOL in k)
+    for tag, r in runs.items():
+        first3 = [v for v in ids3 if v <= r["frames"]]
+        flags = "--plot_matches" + (" --trace_dir" if tag == "trace" else "")
+        print(f"[surfaces] CLI {flags} on {r['frames']} frames: "
+              f"{len(r['ids'])} keyframes, phase 3's first keyframes "
+              f"{r['ids'] == first3}; {len(r['pngs'])} "
+              f"PNGs, decoded shapes {sorted(r['shapes'])}; launches "
+              f"{r['launches']}, by gate {json.dumps(r['by_gate'])}; "
+              f"{r['wall']:.1f} s  ({card})")
+        want = [f"matches_{i:06d}.png" for i in range(1, len(r["ids"]))]
+        if r["ids"] != first3:
+            raise SmokeError(f"--plot_matches keyframes {r['ids']} differ "
+                             f"from phase 3's {first3}")
+        if r["pngs"] != want or r["shapes"] != {(KITTI_H, 2 * KITTI_W, 3)}:
+            raise SmokeError(f"--plot_matches wrote {r['pngs']} with shapes "
+                             f"{r['shapes']}")
+        if r["launches"] <= 0:
+            raise SmokeError(f"the {tag} CLI run never launched the kernel")
+    print(f"[surfaces] trace {os.path.basename(path)}: {size} bytes, "
+          f"{n_events} events, {len(kernels)} distinct CUDA kernels, "
+          f"{KERNEL_SYMBOL} among them {bool(named)}  ({card})")
+    if not named:
+        raise SmokeError(f"the trace names no {KERNEL_SYMBOL} kernel")
+    shutil.rmtree(sub)
+    print(f"[surfaces] phase 10 in {time.perf_counter() - t_phase:.1f} s  "
+          f"({card})")
+    cli = {g: sum(r["by_gate"][g] for r in runs.values())
+           for g in match.GATES}
+    total = {g: by_gate[g] + cli[g] for g in match.GATES}
+    return (launches + sum(r["launches"] for r in runs.values()),
+            {"calls": by_gate, "cli": cli, "total": total})
+
+
+def geo_deg_R(Ra, Rb):
+    """Angle (deg) between two rotation matrices."""
+    c = (np.trace(np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64))
+         - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(HERE, "smoke_out"),
@@ -1646,6 +1939,8 @@ def main(argv=None) -> int:
         phase_distributed(card, os.path.join(args.out, "dist"))
         resume_launches, resume_by_gate = phase_resume(card, args.out,
                                                        *phase3)
+        surf_launches, surf_by_gate = phase_surfaces(
+            card, args.out, phase3[0], phase3[2], vocab, phase3[3][1])
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1653,11 +1948,12 @@ def main(argv=None) -> int:
         for seq in frames:   # the frames are regenerated from the seed
             shutil.rmtree(seq)
     kern["launches"] = (main_launches + sum(n for n, _ in loop.values())
-                        + offline_launches + resume_launches)
+                        + offline_launches + resume_launches + surf_launches)
     kern["launches_by_gate"] = {
         "phase3": main_by_gate, "phase4_loop_closure": loop["A"][1],
         "phase4_no_loop_closure": loop["B"][1],
-        "phase6_resume": resume_by_gate, "phase7_offline": offline_by_gate}
+        "phase6_resume": resume_by_gate, "phase7_offline": offline_by_gate,
+        "phase10_surfaces": surf_by_gate}
     kern["prefetch_extraction_ms"] = prefetch
     print(json.dumps({"kernels": [kern]}))
     print(json.dumps({"ok": True, "device": {

@@ -296,3 +296,31 @@ class ViewGraph:
 
     def save_poses(self, path: str) -> None:
         self.ra.save_poses(path)
+
+    def save_view_graph(self, path: str) -> None:
+        """Every connection's relative pose as YAML —
+        `ViewGraph::saveViewGraph` (src/ViewGraph.cpp:1148-1171), in the
+        JAX package's layout: one ``i``/``j``/``R``/``t`` record per edge
+        (i < j, sorted) in a YAML sequence under ``edges`` (the
+        reference's repeated top-level keys are not parseable YAML), the
+        numbers as ``{:.17e}``."""
+        lines = ["%YAML:1.0", "---", "edges:"]
+        for (i, j), conn in sorted(self.connections.items()):
+            R = np.asarray(conn.pose.R, np.float64).reshape(3, 3)
+            t = np.asarray(conn.pose.t, np.float64).reshape(3)
+            rdata = ", ".join(f"{v:.17e}" for v in R.ravel())
+            tdata = ", ".join(f"{v:.17e}" for v in t)
+            lines += [
+                f"  - {{ i: {self.frames[i].id}, j: {self.frames[j].id},",
+                f"      R: [ {rdata} ],",
+                f"      t: [ {tdata} ] }}",
+            ]
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+    def save_pose_ids(self, path: str) -> None:
+        """1-based frame ids of the keyframes, one per line
+        (src/IRotAvg.cpp:111-128)."""
+        with open(path, "w") as fh:
+            for f in self.frames:
+                fh.write(f"{f.id + 1}\n")

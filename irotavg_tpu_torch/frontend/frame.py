@@ -7,7 +7,9 @@ k1 != 0 -> vocabulary transform when a vocabulary is given.  Feature
 tensors live on the extractor's device, where the matchers and geometry
 read them; host (numpy) mirrors are fetched together, lazily, the first
 time host code reads any of them.  There is no ±1 descriptor expansion:
-the matcher kernel reads the (N, 8) int32 words.
+the matcher kernel reads the (N, 8) int32 words.  The extractor decides
+the descriptor type: (N, 8) int32 words for ORB, (N, 128) f32 rows for
+SIFT (``frontend/sift.py``), which BoW does not apply to.
 """
 
 from __future__ import annotations
@@ -21,11 +23,21 @@ from irotavg_tpu_torch.frontend.camera import Camera
 # feature tensors, in extractor-output order (+ undistorted coordinates)
 FIELDS = ("x", "y", "octave", "angle", "response", "size", "desc", "valid")
 _LAZY = FIELDS + ("xu", "yu")
-# device dtypes of the feature tensors (``desc``: int32 bit patterns)
+# device dtypes of the feature tensors other than ``desc`` (int32 bit
+# patterns, or f32 rows for SIFT: :func:`_desc_host`)
 _DTYPES = {"x": torch.float32, "y": torch.float32, "xu": torch.float32,
            "yu": torch.float32, "octave": torch.int32,
            "angle": torch.float32, "response": torch.float32,
-           "size": torch.float32, "desc": torch.int32, "valid": torch.bool}
+           "size": torch.float32, "valid": torch.bool}
+
+
+def _desc_host(desc) -> np.ndarray:
+    """Host descriptors as the device holds them: f32 rows stay f32, binary
+    words (uint32 or int32) become int32 bit patterns."""
+    desc = np.ascontiguousarray(desc)
+    if desc.dtype.kind == "f":
+        return desc.astype(np.float32)
+    return desc.view(np.int32)
 
 
 class Frame:
@@ -34,16 +46,22 @@ class Frame:
     Attributes (N = extractor capacity, masked by ``valid``), each a lazy
     host mirror of the device tensor :meth:`dev` returns: ``x, y`` level-0
     keypoint coords; ``xu, yu`` undistorted coords; ``octave``; ``angle``
-    (radians); ``response``; ``size``; ``desc`` (N, 8) int32 words;
-    ``valid``.  ``bow`` (word id -> weight dict) and ``feat_nodes`` ((N,)
-    int32 host array of vocabulary node ids, also on the device as
-    ``dev("feat_nodes")``) are filled by :meth:`compute_bow`, else None.
+    (radians); ``response``; ``size``; ``desc`` (N, 8) int32 words (ORB)
+    or (N, 128) f32 rows (SIFT); ``valid``.  ``bow`` (word id -> weight
+    dict) and ``feat_nodes`` ((N,) int32 host array of vocabulary node
+    ids, also on the device as ``dev("feat_nodes")``) are filled by
+    :meth:`compute_bow`, else None.  ``image`` holds the raw pixels (host
+    numpy) when built with ``keep_image=True`` (for
+    ``utils/viz.plot_matches``), else None.
     """
 
     def __init__(self, frame_id: int, image, extractor, camera: Camera,
-                 vocab=None):
+                 vocab=None, keep_image: bool = False):
         self.id = frame_id
         self.camera = camera
+        # the reference keeps the image (Frame::getImage,
+        # src/Frame.cpp:141-160) for its match plots; here only on request
+        self.image = np.asarray(image) if keep_image else None
         self._attach(extractor(image), camera)
         if vocab is not None:
             self.compute_bow(vocab)
@@ -59,6 +77,7 @@ class Frame:
         self = cls.__new__(cls)
         self.id = frame_id
         self.camera = camera
+        self.image = None
         self._attach(out, camera)
         if bow_nid is not None:
             self._set_bow(*bow_nid)
@@ -71,18 +90,21 @@ class Frame:
                 feat_nodes=None, device=None) -> "Frame":
         """Rebuild a Frame from checkpointed host arrays without
         re-extraction: ``arrays`` holds x, y, xu, yu, octave, angle,
-        response, size, desc ((N, 8) words, uint32 or int32), valid and
-        optionally cell.  The feature tensors go onto ``device`` (the card
-        unless ``device="cpu"``); the host mirrors are the given arrays."""
+        response, size, desc ((N, 8) words, uint32 or int32, or (N, 128)
+        f32 SIFT rows), valid and optionally cell.  The feature tensors go
+        onto ``device`` (the card unless ``device="cpu"``); the host
+        mirrors are the given arrays."""
         dev = pick_device(device)
         self = cls.__new__(cls)
         self.id = frame_id
         self.camera = camera
+        self.image = None
         self._host = {k: np.array(v) for k, v in arrays.items()}
-        self._host["desc"] = np.ascontiguousarray(
-            self._host["desc"]).view(np.int32)
+        self._host["desc"] = _desc_host(self._host["desc"])
         self._device = {k: torch.as_tensor(self._host[k], dtype=_DTYPES[k],
-                                           device=dev) for k in _LAZY}
+                                           device=dev) for k in _DTYPES}
+        self._device["desc"] = torch.as_tensor(self._host["desc"],
+                                               device=dev)
         self.bow = bow
         self.feat_nodes = None
         if feat_nodes is not None:
@@ -146,9 +168,19 @@ class Frame:
         """Device tensor of a feature array."""
         return self._device[name]
 
+    @property
+    def n_valid(self) -> int:
+        """Number of valid feature slots."""
+        return int(np.asarray(self.valid).sum())
+
     def compute_bow(self, vocab, levelsup: int = 4) -> None:
         """Vocabulary transform (src/Frame.cpp:263-274,
-        ORB_VOCAB_LEVELS=4)."""
+        ORB_VOCAB_LEVELS=4).  ORB words only: a vocabulary of binary words
+        does not apply to SIFT's float rows (the reference's vocabulary is
+        meaningful with USE_ORB=1 only)."""
+        if self.dev("desc").is_floating_point():
+            raise ValueError("a binary-word vocabulary does not apply to "
+                             "float (SIFT) descriptors")
         self._set_bow(*vocab.transform(self.dev("desc"), self.dev("valid"),
                                        levelsup=levelsup))
 

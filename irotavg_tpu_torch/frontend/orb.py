@@ -29,7 +29,7 @@ from irotavg_tpu_torch.ops.fast import (
     cell_fallback_mask, fast_score_map, nms3,
 )
 from irotavg_tpu_torch.ops.image import (
-    gaussian_blur7, pyramid_sizes, reflect_pad, resize_bilinear,
+    gaussian_blur7, pad_reflect101, pyramid_sizes, resize_bilinear,
 )
 from irotavg_tpu_torch.ops.orient import ic_angles
 
@@ -116,10 +116,10 @@ def _extract_level(img, th_hi, th_lo, k_budget: int):
     # for one image: CUDA's reduction layout depends on the number of
     # outputs and on the data's alignment, so one call over B*K patches
     # could round differently from B calls over K
-    ip = _patches(reflect_pad(img, PATCH_R), cy, cx, 15, PATCH_R)
+    ip = _patches(pad_reflect101(img, PATCH_R), cy, cx, 15, PATCH_R)
     angles = torch.stack([ic_angles(ip[b].clone()) for b in range(B)])
     # quantise like the reference's uint8 blurred image (half to even)
-    bp = torch.round(reflect_pad(gaussian_blur7(img), PATCH_R))
+    bp = torch.round(pad_reflect101(gaussian_blur7(img), PATCH_R))
     desc = steered_brief(
         _patches(bp, cy, cx, PATCH_R, PATCH_R).reshape(
             B * k, 2 * PATCH_R + 1, 2 * PATCH_R + 1),

@@ -19,6 +19,9 @@ The reference's ``vmap`` over the K window candidates is a batch axis
 here: the candidates' epipolar re-matching reaches the matcher kernel as
 one batched launch (``B = K``).  Random draws come from one
 ``torch.Generator`` per frame, consumed in a fixed order.
+`fused_initial_pose` and `fused_refine_window` are the two halves of
+`fused_process_frame` (before and after the keyframe gate) as public
+calls, each with its own generator made from a seed.
 
 The offline pipeline's functions (`fused_flow`, `fused_pair_estimate`)
 take P independent frame pairs: their local matching is one batched
@@ -242,6 +245,91 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
     return E, R, t, n, m12, success
 
 
+def fused_initial_pose(fc, fp, local_rad0, cam, th_norm, seed, min_inliers,
+                       nnratio):
+    """`findInitialPose`'s adaptive-radius search (src/ViewGraph.cpp:
+    828-902) as one public call: :func:`_initial_pose_core` with a
+    generator seeded ``seed`` on the frames' device (the reference creates
+    its key from the same seed).  ``fc`` / ``fp`` are the current /
+    previous frame tensors ``(desc, valid, octave, x, y)``; matches run
+    current -> previous (gate ``local``); ``min_inliers`` is the accept
+    level (the engine passes ``2 * min_matches``).  Returns (E, R, t,
+    n_che, m12, local_rad, rel_valid, accepted); the pose maps previous
+    -> current."""
+    gen = make_generator(seed, fc[3].device)
+    return _initial_pose_core(fc, fp, local_rad0, cam, th_norm, gen,
+                              min_inliers, nnratio)
+
+
+def _stack_candidates(cands, n_feat, has_nodes):
+    """Stack per-candidate frame tuples ``(desc, nodes, valid, angle, x, y,
+    octave)`` along a leading K; ``nodes`` are zeros (and may be None in
+    the tuples) without ``has_nodes``."""
+    dev = cands[0][0].device
+    cols = list(zip(*cands))
+    nodes = (torch.stack(cols[1]) if has_nodes else
+             torch.zeros((len(cands), n_feat), dtype=torch.int32, device=dev))
+    return (torch.stack(cols[0]), nodes) + tuple(torch.stack(c)
+                                                 for c in cols[2:])
+
+
+def _refine_window_core(fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp,
+                        K_inv, sigma2, cam, th_norm, gen, min_matches,
+                        has_nodes):
+    """Everything `processFrame` does after the keyframe gate
+    (src/ViewGraph.cpp:1081-1136): the epipolar refine of the initial pose
+    in the previous -> current orientation, then the pivot-chained window
+    walk over the stacked candidates ``fw``.  Returns ``(refined,
+    window)`` as :func:`fused_process_frame` does."""
+    x_p = fp[4]
+    m12_pc0 = _flip_assignment(m12_cp, x_p.shape[0])
+    cnt0 = (m12_pc0 >= 0).sum()
+    min_pairs = math.ceil(0.75 * min_matches)
+    Er, Rr, tr, nr, m12_pc, _ = fused_refine(
+        tuple(a[None] for a in fp), fc[:6], E0[None], R0[None], t0[None],
+        cnt0[None], m12_pc0[None], K_inv, sigma2, cam, th_norm, gen,
+        min_pairs, has_nodes)
+    refined = (Er[0], Rr[0], tr[0], nr[0], m12_pc[0])
+
+    # pivot chaining: candidate row -> pivot row -> current column
+    j = m12_w2p.clamp(min=0)
+    m12_w2c = torch.where(m12_w2p >= 0, m12_pc[0][j],
+                          torch.full_like(m12_w2p, -1))
+    n_chain = (m12_w2c >= 0).sum(dim=1).tolist()
+    active = [bool(a) and c > 5 for a, c in zip(active_w, n_chain)]
+    window = fused_window_connect(
+        fw, m12_w2c, active, fc[:6], K_inv, sigma2, cam, th_norm, gen,
+        min_matches, has_nodes)
+    return refined, window
+
+
+def fused_refine_window(fc, fp, cands, m12_w2p, active_w, E0, R0, t0,
+                        m12_cp, K_inv, sigma2, cam, th_norm, seed,
+                        min_matches, has_nodes=False):
+    """The post-gate part of `processFrame` as one public call (the JAX
+    package's ``fused_refine_window``): :func:`_refine_window_core` with a
+    generator seeded ``seed``.
+
+    ``fc`` / ``fp`` are the current and previous frame tuples ``(desc,
+    nodes, valid, angle, x, y, octave)`` (``nodes`` may be None without
+    ``has_nodes``); ``cands`` an unstacked tuple of such tuples, one per
+    window candidate; ``m12_cp`` the initial pose's current-row ->
+    previous-column assignment.  Returns ``(refined, window)``:
+    ``refined = (E, R, t, n, m12_pc)`` (previous row -> current column)
+    and ``window = (E, R, t, n, m12, success)`` with leading K.
+    """
+    n_feat = fc[4].shape[0]
+    if not has_nodes:
+        zeros = torch.zeros(n_feat, dtype=torch.int32, device=fc[4].device)
+        fc = fc[:1] + (zeros,) + tuple(fc[2:])
+        fp = fp[:1] + (zeros,) + tuple(fp[2:])
+    fw = _stack_candidates(cands, n_feat, has_nodes)
+    gen = make_generator(seed, fc[4].device)
+    return _refine_window_core(
+        fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp, K_inv, sigma2,
+        cam, th_norm, gen, min_matches, has_nodes)
+
+
 def fused_process_frame(fc, fp, fw, m12_w2p, active_w, local_rad0, K_inv,
                         sigma2, cam, th_norm, gen, min_matches, min_inliers,
                         nnratio, has_nodes=False):
@@ -265,26 +353,9 @@ def fused_process_frame(fc, fp, fw, m12_w2p, active_w, local_rad0, K_inv,
     local_rad = float(local_rad)
     if not local_rad >= GATE_PX:
         return local_rad, rel_valid, None, None
-
-    # refine the initial pose in the previous -> current orientation
-    m12_pc0 = _flip_assignment(m12_cp, x_p.shape[0])
-    cnt0 = (m12_pc0 >= 0).sum()
-    min_pairs = math.ceil(0.75 * min_matches)
-    Er, Rr, tr, nr, m12_pc, _ = fused_refine(
-        tuple(a[None] for a in fp), fc[:6], E0[None], R0[None], t0[None],
-        cnt0[None], m12_pc0[None], K_inv, sigma2, cam, th_norm, gen,
-        min_pairs, has_nodes)
-    refined = (Er[0], Rr[0], tr[0], nr[0], m12_pc[0])
-
-    # pivot chaining: candidate row -> pivot row -> current column
-    j = m12_w2p.clamp(min=0)
-    m12_w2c = torch.where(m12_w2p >= 0, m12_pc[0][j],
-                          torch.full_like(m12_w2p, -1))
-    n_chain = (m12_w2c >= 0).sum(dim=1).tolist()
-    active = [bool(a) and c > 5 for a, c in zip(active_w, n_chain)]
-    window = fused_window_connect(
-        fw, m12_w2c, active, fc[:6], K_inv, sigma2, cam, th_norm, gen,
-        min_matches, has_nodes)
+    refined, window = _refine_window_core(
+        fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp, K_inv, sigma2,
+        cam, th_norm, gen, min_matches, has_nodes)
     return local_rad, rel_valid, refined, window
 
 

@@ -10,6 +10,11 @@ Kept from the reference, deliberately: a contested target keeps the
 globally smallest distance (ties -> smaller row), and the rotation
 histogram bins by ``round(delta_deg / 30)`` (only bins 0..12 are ever
 populated — the ORB-SLAM2 quirk).
+
+The Frame-level matchers (:func:`match_by_bow`, :func:`match_epipolar`,
+:func:`match_locally`, :func:`match_sift`) read the frames' device tensors
+(``Frame.dev``), run on that device and return the (N1,) host (numpy)
+assignment vector.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import irotavg_tpu_torch.device  # noqa: F401  (no TF32: full f32 products)
 from irotavg_tpu_torch.ops.match import best2, make_colf, make_rowf
 
 TH_LOW = 50          # src/ViewGraph.cpp:33
@@ -144,3 +150,93 @@ def matches_to_pairs(m: np.ndarray) -> np.ndarray:
     """(N1,) host assignment vector -> (M, 2) index pairs."""
     i = np.where(m >= 0)[0]
     return np.stack([i, m[i]], axis=1).astype(np.int32)
+
+
+# -- Frame-level wrappers ---------------------------------------------------
+
+
+def _nodes(f):
+    """The frame's vocabulary node ids on its device, or None."""
+    return None if f.feat_nodes is None else f.dev("feat_nodes")
+
+
+def match_by_bow(f1, f2, nnratio: float = 0.9):
+    """BoW-guided matching between two Frames -> (N1,) matches12.  When
+    either frame has no node ids the search is global (gate ``none``)."""
+    n1, n2 = _nodes(f1), _nodes(f2)
+    m = _match_by_bow_core(
+        f1.dev("desc"), n1, f1.dev("valid"), f1.dev("angle"),
+        f2.dev("desc"), n2, f2.dev("valid"), f2.dev("angle"),
+        float(np.float32(nnratio)),
+        has_nodes=n1 is not None and n2 is not None)
+    return m.cpu().numpy()
+
+
+def match_epipolar(f1, f2, F12, scale_factor: float = 1.2):
+    """Epipolar-gated matching (undistorted coords) -> (N1,) matches12.
+    ``F12`` is taken as f32; the gate scales with the octave's
+    ``sigma^2`` over ``max(n_octaves, 8)`` levels."""
+    n_oct = int(max(f1.octave.max(), f2.octave.max())) + 1
+    dev = f1.device
+    sigma2 = torch.as_tensor(
+        (scale_factor ** np.arange(max(n_oct, 8))) ** 2,
+        dtype=torch.float32, device=dev)
+    F = torch.as_tensor(np.asarray(F12), dtype=torch.float32, device=dev)
+    n1, n2 = _nodes(f1), _nodes(f2)
+    has_nodes = n1 is not None and n2 is not None
+    m = _match_epipolar_core(
+        f1.dev("desc"), n1, f1.dev("valid"), f1.dev("angle"),
+        f1.dev("xu"), f1.dev("yu"), f1.dev("octave"),
+        f2.dev("desc"), n2, f2.dev("valid"), f2.dev("angle"),
+        f2.dev("xu"), f2.dev("yu"), F, sigma2, has_nodes=has_nodes)
+    return m.cpu().numpy()
+
+
+def match_locally(f1, f2, guess_xy=None, radius: float = 100.0,
+                  nnratio: float = 0.9):
+    """Window search around guess positions (by default f1's own
+    keypoints, the motion-free guess of `findCurr2PrevLocalMatches`,
+    src/ViewGraph.cpp:574-596) -> (N1,) matches12."""
+    if guess_xy is None:
+        gx, gy = f1.dev("xu"), f1.dev("yu")
+    else:
+        gx, gy = (torch.as_tensor(np.asarray(g), dtype=torch.float32,
+                                  device=f1.device) for g in guess_xy)
+    m = _match_locally_core(
+        f1.dev("desc"), f1.dev("valid"), f1.dev("octave"), gx, gy,
+        f2.dev("desc"), f2.dev("valid"), f2.dev("octave"),
+        f2.dev("xu"), f2.dev("yu"),
+        float(np.float32(radius)), float(np.float32(nnratio)))
+    return m.cpu().numpy()
+
+
+def _match_sift_core(d1, valid1, d2, valid2):
+    """Nearest neighbour by L2 over SIFT descriptors scaled by 512 (OpenCV's
+    scale, so the reference's absolute threshold keeps its meaning): one
+    f32 product ``|a|^2 + |b|^2 - 2 a.b``, the first arg-min, and the
+    ``d <= max(3 * min_d, 80)`` filter.  Returns (m12, dmin)."""
+    a = d1 * 512.0
+    b = d2 * 512.0
+    dist2 = ((a * a).sum(dim=1)[:, None] + (b * b).sum(dim=1)[None, :]
+             - 2.0 * (a @ b.T))
+    gate = valid1[:, None] & valid2[None, :]
+    dist2 = torch.where(gate, dist2.clamp(min=0.0),
+                        torch.full_like(dist2, float("inf")))
+    j = torch.argmin(dist2, dim=1)                  # first occurrence
+    dmin = torch.sqrt(dist2.gather(1, j[:, None])[:, 0])
+    finite = torch.isfinite(dmin)
+    global_min = torch.where(finite, dmin,
+                             torch.full_like(dmin, float("inf"))).min()
+    keep = finite & (dmin <= torch.clamp(3.0 * global_min, min=80.0))
+    return torch.where(keep, j, torch.full_like(j, -1)), dmin
+
+
+def match_sift(f1, f2):
+    """Nearest-neighbour L2 matching of SIFT descriptors with the
+    reference's good-match filter ``d <= max(3*min_d, 80.0)`` —
+    `findSIFTMatches` (src/ViewGraph.cpp:694-722; FLANN there, one exact
+    distance product here).  Returns the (N1,) assignment vector."""
+    m12, _ = _match_sift_core(
+        f1.dev("desc").to(torch.float32), f1.dev("valid"),
+        f2.dev("desc").to(torch.float32), f2.dev("valid"))
+    return m12.cpu().numpy()

@@ -32,10 +32,16 @@ def _gauss_kernel(ksize: int, sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def reflect_pad(img, r: int):
-    """REFLECT_101 padding by ``r`` of the last two axes of ``([B,] H, W)``."""
+def pad_reflect101(img, pad: int):
+    """BORDER_REFLECT_101 (``dcb|abcd|cba``) padding on both spatial axes
+    of ``([B,] H, W)``.  Each axis must be longer than ``pad``: a single
+    reflection cannot cover a wider pad, and this raises rather than fold
+    the border twice."""
     h, w = img.shape[-2:]
-    x = F.pad(img.reshape(-1, 1, h, w), (r,) * 4, mode="reflect")
+    if pad >= h or pad >= w:
+        raise ValueError(f"REFLECT_101 pad {pad} needs both axes longer "
+                         f"than it; got {h}x{w}")
+    x = F.pad(img.reshape(-1, 1, h, w), (pad,) * 4, mode="reflect")
     return x.reshape(img.shape[:-2] + x.shape[-2:])
 
 
@@ -48,7 +54,7 @@ def gaussian_blur7(img, sigma: float = 2.0):
     result bit for bit."""
     k = _gauss_kernel(7, sigma).tolist()
     h, w = img.shape[-2:]
-    x = reflect_pad(img, 3)
+    x = pad_reflect101(img, 3)
     rows = sum(k[i] * x[..., :, i:i + w] for i in range(7))
     return sum(k[i] * rows[..., i:i + h, :] for i in range(7))
 

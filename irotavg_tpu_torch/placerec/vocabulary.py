@@ -130,6 +130,13 @@ class Vocabulary:
                               self._node_desc_t, self.L,
                               max(self.L - levelsup, 0))
 
+    def assemble(self, leaf, nid):
+        """Host assembly of one frame's descent results (:meth:`descend`'s
+        tensors, or host arrays) -> (bow, feat_nodes)."""
+        leaf, nid = (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                     for v in (leaf, nid))
+        return self._assemble(leaf, nid)
+
     def transform(self, desc, valid=None, levelsup: int = 4):
         """(N, 8) int32 descriptors -> (bow, feat_nodes).
 

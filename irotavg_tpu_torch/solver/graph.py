@@ -133,6 +133,18 @@ def incidence_matvec(edges, x_nodes, free_mask, edge_mask):
     return torch.where(edge_mask[..., None], out, torch.zeros_like(out))
 
 
+def incidence_fixed_matvec(edges, x_nodes, free_mask, edge_mask):
+    """``C @ x``: the incidence action over the *fixed* block, per edge
+    ``x[j]·[j fixed] − x[i]·[i fixed]``; ``(*B, n, k)`` -> ``(*B, m, k)``.
+
+    The complement of :func:`incidence_matvec`: for any node field x,
+    ``A@x_free + C@x_fixed == x[j] − x[i]`` on real edges (the reference's
+    ``make_C``, ral/l1_irls.cpp:783-806, built there but never called)."""
+    x = torch.where(free_mask[..., None], torch.zeros_like(x_nodes), x_nodes)
+    out = take_rows(x, edges[..., 1]) - take_rows(x, edges[..., 0])
+    return torch.where(edge_mask[..., None], out, torch.zeros_like(out))
+
+
 def incidence_rmatvec(edges, e, free_mask, edge_mask, n):
     """``A.T @ e``: ``+e_k`` to node j, ``-e_k`` to node i; ``(*B, n, k)``
     zeroed at fixed nodes."""

@@ -1,8 +1,8 @@
 """The port's ``irotavg`` CLI, in-process, on PGM frames: the output
-contract of test_app.py:147-155 without and with a vocabulary, the
-not-ported options (``--checkpoint``/``--resume`` run, in
-test_torch_checkpoint.py), the device policy (the card unless ``--device cpu``)
-and the matcher's CPU dispatch."""
+contract of test_app.py:147-155 without and with a vocabulary,
+``--plot_matches`` and ``--trace_dir`` (``--checkpoint``/``--resume`` run
+in test_torch_checkpoint.py), the device policy (the card unless
+``--device cpu``) and the matcher's CPU dispatch."""
 
 import numpy as np
 import pytest
@@ -107,13 +107,57 @@ def test_cli_with_vocabulary(tmp_path, sequence, monkeypatch, capsys):
     assert "loading vocabulary..." in log and "loop_closure: total" in log
 
 
-@pytest.mark.parametrize("argv", [
-    ["none", "--plot_matches", "d"], ["none", "--trace_dir", "d"],
-])
-def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys):
-    args = [argv[0], "cfg.yaml", str(tmp_path)] + argv[1:]
-    assert port_cli.main(args) == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_plot_matches_writes_pngs(tmp_path, sequence):
+    """``--plot_matches`` on the CPU: one PNG per connected consecutive
+    keyframe pair, each the side-by-side canvas; the frames are extracted
+    one at a time, so the keyframes are those of ``--prefetch 1``."""
+    from irotavg_tpu_torch.utils.viz import read_png
+
+    seq, yaml = _write_inputs(tmp_path, sequence)
+    base = ["none", str(yaml), str(seq), "--image_ext", ".pgm",
+            "--device", "cpu"]
+    assert port_cli.main(base + ["--out_dir", str(tmp_path / "a"),
+                                 "--prefetch", "1"]) == 0
+    plots = tmp_path / "plots"
+    assert port_cli.main(base + ["--out_dir", str(tmp_path / "b"),
+                                 "--plot_matches", str(plots)]) == 0
+    ids_a = (tmp_path / "a" / "rotavg_poses_ids.txt").read_text()
+    ids_b = (tmp_path / "b" / "rotavg_poses_ids.txt").read_text()
+    assert ids_a == ids_b
+    n_key = len(ids_b.split())
+    assert n_key >= 4
+    pngs = sorted(p.name for p in plots.iterdir())
+    assert pngs == [f"matches_{i:06d}.png" for i in range(1, n_key)]
+    frames = sequence[0]
+    h, w = frames[0].shape
+    src = [int(v) - 1 for v in ids_b.split()]      # keyframe -> frame
+    for i, name in enumerate(pngs, start=1):
+        im = read_png(str(plots / name))
+        assert im.shape == (h, 2 * w, 3) and im.dtype == np.uint8
+        # the halves are the two keyframes wherever no line (a palette
+        # colour, never gray) was drawn
+        side = np.concatenate([frames[src[i - 1]], frames[src[i]]], axis=1)
+        gray = (im[..., 0] == im[..., 1]) & (im[..., 1] == im[..., 2])
+        assert gray.mean() > 0.5
+        np.testing.assert_array_equal(im[..., 0][gray], side[gray])
+
+
+def test_cli_trace_dir_writes_a_trace(tmp_path, sequence):
+    """``--trace_dir`` on the CPU: one torch.profiler trace of the frame
+    loop with the port's operator events."""
+    import json
+
+    seq, yaml = _write_inputs(tmp_path, sequence)
+    trace = tmp_path / "trace"
+    rc = port_cli.main(["none", str(yaml), str(seq), "--image_ext", ".pgm",
+                        "--out_dir", str(tmp_path / "out"), "--max_frames",
+                        "2", "--trace_dir", str(trace), "--device", "cpu"])
+    assert rc == 0
+    files = list(trace.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert len(events) > 1000 and "aten::matmul" in names
 
 
 def test_matcher_runs_plain_version_on_cpu(sequence):
