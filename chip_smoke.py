@@ -9,10 +9,17 @@ prints no result line):
 0. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit (``nvidia-smi``) and the torch / CUDA versions.
 1. build — compiles every CUDA kernel of the main path from
-   ``irotavg_tpu_torch/csrc`` with nvcc and prints the build seconds and
-   ptxas's ``-v`` report (registers, shared memory, spills).
+   ``irotavg_tpu_torch/csrc`` (``match_best2``, ``segment_sum``), one nvcc
+   each, all started together, and prints the build seconds and ptxas's
+   ``-v`` report (registers, shared memory, spills).
 2. kernels — each kernel against its plain PyTorch version on the card,
-   required exactly equal: at the main path's shapes under every gate,
+   required exactly equal.  ``segment_sum`` (the solver's fixed-order
+   scatter-adds) bit for bit against ``segment_sum_plain`` on the same
+   inputs moved to the CPU, at the solver's shapes (:func:`segment_cases`:
+   5b's graph in f64 and f32, the window server's batch, a main-path
+   window), timed beside its bound, the plain version on the card and one
+   atomic ``index_add_`` (``library_ms``).  ``match_best2``: at the main
+   path's shapes under every gate,
    and on adversarial cases (exact duplicate columns on both sides of
    every column-split and tile boundary, rows with no and with one
    passing column, N2 = split*tile +- 1, N1 under one row tile, shared
@@ -35,8 +42,8 @@ prints no result line):
    extraction (``PER_FRAME_PHASE3``).  Then the prefetch check: the first
    16 frames through ``FramePrefetcher(batch=8)`` against ``Frame`` built
    one at a time, without and with the vocabulary (desc, valid, octave,
-   x, y equal, angle within 1e-5, BoW and node ids equal), and the
-   extraction ms per frame batched and one at a time (CUDA events).
+   x, y, angle, BoW and node ids equal), and the extraction ms per frame
+   batched and one at a time (CUDA events).
 4. loop closure — renders a one-way orbit of two laps (241 frames, the
    orbit shrinking by 1 m, so lap 2 revisits lap 1 from a slightly
    different pose) at the same size, decompresses the repo's k=10, L=5
@@ -46,14 +53,17 @@ prints no result line):
    loop closure, B with ``--no_loop_closure``.  Fails unless both runs succeed, A makes a loop
    edge spanning more than 10 views, A launches the matcher under the
    ``node`` and ``epipolar`` gates, and 2 * RMSE_A < RMSE_B (the payoff
-   tests/test_loop_payoff.py asserts for the reference).
+   tests/test_loop_payoff.py asserts for the reference).  Then the
+   extraction parity: the 241 frames extracted on the card and on the
+   CPU, batched by 8, must be equal bit for bit (x, y, octave, valid,
+   response, angle, descriptors).
 5. solver surfaces (f64 on the card) — (a) the port's ``l1_irls`` CLI on
    the golden problem (1832 views, 3655 edges): row counts, and
    bench.py:321-322's quality rule against the scipy oracle
    ``tests/ref_impl.py``; (b) bench.py:379-401's 50k-view problem with
    the reference's f64 CG configuration, twice: converged, finite, mean
    error vs GT within 0.01 deg of the JAX package's f64 value, CG
-   iterations, seconds and whether the two runs are bit-identical;
+   iterations, seconds, and the two runs bit-identical;
    (c) a KITTI-length (4541-view) graph through ``IncrementalRotAvg``'s
    ``rot_avg(5_000_000)``: the CG window (bucket 8192 > 2048) against the
    same graph solved dense, max geodesic < 1e-6 deg; (d) bench.py's 384
@@ -62,23 +72,25 @@ prints no result line):
 6. checkpoint/resume — phase 3's sequence through the CLI in two parts
    (75 keyframes with ``--checkpoint`` and ``--prefetch 1``, then
    ``--resume`` to 150): the same keyframe ids and connections as phase
-   3's batched extraction, poses within 1e-9 rad (bit-equality printed),
-   the matcher launched in both parts.
+   3's batched extraction, poses equal bit for bit (extraction and every
+   solve are independent of the card's order of additions), the matcher
+   launched in both parts.
 7. offline — the port's ``irotavg_batch`` CLI (``--device cuda``) on
    phase 4's frames with phase 4's vocabulary, launch counters reset just
    before: keyframes, edges, loop edges and their keyframe spans, stage
    seconds, frames/s, launches by gate, rotation RMSE against GT.  Fails
    unless it succeeds, launches the matcher under ``local`` and
-   ``epipolar_nonode``, its RMSE is finite and at most 1.5x the JAX
-   package's on the same frames, it makes a loop edge spanning more than
-   10 keyframes, and 2 * its RMSE < phase 4's RMSE_B.
+   ``epipolar_nonode``, makes the port's CPU count of loop candidates
+   (``PORT_OFFLINE_LOOP_CANDIDATES``), its RMSE is finite and at most
+   1.5x the JAX package's on the same frames, it makes a loop edge
+   spanning more than 10 keyframes, and 2 * its RMSE < phase 4's RMSE_B.
 8. distributed — ``parallel/`` at world size 1 over NCCL on phase 5b's
    50k-view f64 problem: ``sharded_irls`` and ``sharded_ravg_pipeline``
-   against the single-device ``irls`` on the same schedules (equal IRLS
-   and CG iterations, max geodesic < 1e-6 deg with deterministic
-   kernels on both sides), the sharded solve's mean error within 0.01 deg
-   of the JAX f64 value, seconds; then the scaling probe at world size 1
-   (one card: no multi-GPU scaling is measured).
+   against the single-device ``irls`` on the same schedules, in the
+   default mode (equal IRLS and CG iterations, max geodesic 0 deg), the
+   sharded solve's mean error within 0.01 deg of the JAX f64 value,
+   seconds; then the scaling probe at world size 1 (one card: no
+   multi-GPU scaling is measured).
 9. vocabulary training — ``train_vocabulary_flat`` (k=10, L=5) on
    descriptors sampled from phase 4's frames on the card, with its IDF
    descent on the card and on the CPU: equal trees and weights; seconds.
@@ -103,6 +115,10 @@ prints no result line):
    pair, phase 3's first keyframes, and a ``torch.profiler`` trace naming
    ``match_best2_kernel`` among its CUDA kernel events.
 
+Every path that runs the solver (phases 3-8 and phase 10's CLI runs)
+counts ``segment_sum``'s launches from 0 and fails if it launched the
+kernel no time.
+
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -112,6 +128,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import shutil
@@ -172,13 +189,12 @@ N_WINDOWS = 384               # bench.py:500's batch of windows
 RESUME_AT = 75
 # phase 3's outputs with per-frame extraction (``--prefetch 1``) on an
 # NVIDIA H100 80GB HBM3: the batched extraction must give the same
-PER_FRAME_PHASE3 = {"keyframes": 150, "rmse": "0.4970",
+PER_FRAME_PHASE3 = {"keyframes": 150, "rmse": "0.4971",
                     "by_gate": {"none": 0, "node": 0, "local": 149,
-                                "epipolar": 0, "epipolar_nonode": 1381}}
-# the prefetch check: frames, batch width, angle tolerance (rad)
+                                "epipolar": 0, "epipolar_nonode": 1382}}
+# the prefetch check: frames and batch width
 PREFETCH_FRAMES = 16
 PREFETCH_BATCH = 8
-PREFETCH_ANGLE_TOL = 1e-5
 # phase 7: the JAX package's offline rotation RMSE (deg) on phase 4's
 # frames with phase 4's vocabulary, computed once on a CPU through the
 # JAX ``irotavg_batch`` CLI (default settings: 241 keyframes, 1091
@@ -187,6 +203,11 @@ PREFETCH_ANGLE_TOL = 1e-5
 JAX_OFFLINE_RMSE_DEG = 1.2757557007946743
 JAX_OFFLINE_LOOP_EDGES = 137
 OFFLINE_RMSE_FACTOR = 1.5
+# the port's loop candidates on the same frames, computed once on a CPU
+# (``tests/test_torch_offline_cands.py`` run as a script); extraction
+# rounds the same on the card and the CPU, so the card must make as many.
+# JAX's f32 orientation sums also make (0, 122) and (1, 122) candidates
+PORT_OFFLINE_LOOP_CANDIDATES = 135
 # phase 10: SIFT agreement card vs CPU, the two-view tolerance, the CLI
 # run's frames and the kernel's symbol in the trace
 SIFT_KEYPOINT_SHARE = 0.99
@@ -204,8 +225,29 @@ SURFACE_TRACE_FRAMES = 3
 KERNEL_SYMBOL = "match_best2_kernel"
 
 
+# the hand-written kernels of the port (irotavg_tpu_torch/csrc/<name>.cu)
+KERNELS = ("match_best2", "segment_sum")
+# segment_sum launches per driven path, each counted from 0 just before
+# the path runs (read at the end for the kernel report)
+SEGMENT_LAUNCHES: dict[str, int] = {}
+
+
 class SmokeError(RuntimeError):
     pass
+
+
+@contextlib.contextmanager
+def counting_segments(path):
+    """Sets ``segment_sum``'s launch count to 0 just before the block and
+    records it under ``path`` just after; fails if the block (a path that
+    runs the solver) launched the kernel no time."""
+    from irotavg_tpu_torch.ops import segment
+
+    segment.reset_launch_counts()
+    yield
+    n = SEGMENT_LAUNCHES[path] = segment.segment_sum.launches
+    if n <= 0:
+        raise SmokeError(f"{path} never launched segment_sum")
 
 
 def _card(torch) -> str:
@@ -250,20 +292,26 @@ def phase_device():
 
 
 def phase_build(card):
+    """Builds every kernel's source at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from irotavg_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.load("match_best2")
-    print(f"[build] match_best2: nvcc {build.build_seconds['match_best2']:.2f}"
-          f" s, load {time.perf_counter() - t0:.2f} s  ({card})")
-    report = build.ptxas_report.get("match_best2")
-    if report is None:
-        print("[build] match_best2: library was already built; no ptxas "
-              "report")
-        return
-    for line in report.splitlines():
-        if line.strip():
-            print(f"[build] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.load, KERNELS))
+    print(f"[build] {', '.join(KERNELS)} in parallel: "
+          f"{time.perf_counter() - t0:.2f} s  ({card})")
+    for name in KERNELS:
+        print(f"[build] {name}: nvcc {build.build_seconds[name]:.2f} s")
+        report = build.ptxas_report.get(name)
+        if report is None:
+            print(f"[build] {name}: library was already built; no ptxas "
+                  f"report")
+            continue
+        for line in report.splitlines():
+            if line.strip():
+                print(f"[build] ptxas: {line.strip()}")
 
 
 def _time_ms(torch, fn, per_window=50, windows=7):
@@ -588,6 +636,111 @@ def phase_kernels(card):
                           timed[B8 + ("epipolar_nonode",)]}}
 
 
+# -- phase 2, segment_sum: the solver's scatter-adds ---------------------------
+
+# a main-path window of the per-keyframe CLI: the views of a 10-keyframe
+# window and its neighbours, 3 sequential edges a view
+MAIN_WINDOW_VIEWS = 13
+
+
+def segment_cases(dev):
+    """``segment_sum``'s inputs at the shapes the solver gives it, as
+    ``(name, values, plan)`` on ``dev``: 5b's 50k-view graph (the CG
+    matvec's ``A.T @ e`` over 3 columns, in f64 and in the scaling probe's
+    f32, and the Jacobi diagonal), the window server's 384 windows
+    (m_pad 64, n_pad 16, flattened), and a main-path window's dense
+    Laplacian (the 3 L1-RA lanes as one column) and ``A.T @ e``.  Values
+    are random normals from a seeded generator."""
+    import torch
+
+    from irotavg_tpu_torch.engine.batched import pack_windows
+    from irotavg_tpu_torch.ops.segment import segment_plan
+    from irotavg_tpu_torch.solver import graph
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    cases = []
+
+    def add(name, plan, k, dtype=torch.float64):
+        v = torch.randn((plan.perm.numel(), k), generator=gen, dtype=dtype,
+                        device=dev)
+        cases.append((name, v, plan))
+
+    _, g, _ = large_problem(dev)
+    rplan = graph.rmatvec_plan(g.edges, g.n)
+    add("5b_rmatvec_f64", rplan, 3)
+    add("5b_rmatvec_f32", rplan, 3, torch.float32)
+    e = g.edges
+    add("5b_diag_f64", segment_plan(torch.cat([e[:, 0], e[:, 1]]), g.n), 1)
+    edges = pack_windows(bench_windows(N_WINDOWS), 64, 16)[0]
+    add("windows_rmatvec_f64", graph.rmatvec_plan(
+        torch.as_tensor(edges, device=dev).long(), 16), 3)
+    _, we, _, _ = kitti_chain(MAIN_WINDOW_VIEWS)
+    we = torch.as_tensor(we, device=dev).long()
+    n = MAIN_WINDOW_VIEWS
+    free = torch.arange(n, device=dev) >= 1
+    emask = torch.ones(len(we), dtype=torch.bool, device=dev)
+    ids, _, fr = graph.dense_terms(
+        we[None], torch.ones((3, len(we)), dtype=torch.float64, device=dev),
+        free[None], emask[None], n)
+    add("window_dense_lanes_f64", segment_plan(ids, fr.numel() * n), 1)
+    add("window_rmatvec_f64", graph.rmatvec_plan(we, n), 3)
+    return cases
+
+
+def phase_segment_kernel(card):
+    """``segment_sum`` on the card against its plain version on the same
+    inputs moved to the CPU, bit for bit, at :func:`segment_cases`'
+    shapes; times of the kernel, the plain version on the card and one
+    atomic ``index_add_`` of the unsorted terms (``library_ms``, never
+    called by the port), beside the bound."""
+    import torch
+
+    from irotavg_tpu_torch.ops import segment
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    timed = {}
+    for name, v, plan in segment_cases(dev):
+        got = segment.segment_sum(v, plan)
+        cpu_plan = segment.SegmentPlan(*(t.cpu() for t in plan[:3]),
+                                       plan.rows)
+        ref = segment.segment_sum_plain(v.cpu(), cpu_plan)
+        torch.cuda.synchronize()
+        if not _bits_equal(got.cpu(), ref):
+            d = float((got.cpu().double() - ref.double()).abs().max())
+            raise SmokeError(f"segment_sum != plain on {name}: max |d| {d}")
+        launch, _ = segment.segment_sum_launcher(v, plan)
+        k_ms = _time_ms(torch, launch)
+        p_ms = _time_ms(torch, lambda: segment.segment_sum_plain(v, plan),
+                        per_window=10, windows=5)
+        # the library yardstick: CUDA's atomic index_add_ of the terms in
+        # their original order (the scatter the port used to make)
+        ids = torch.empty_like(plan.ids).scatter_(0, plan.perm, plan.ids)
+        acc = torch.zeros((plan.rows, v.shape[1]), dtype=v.dtype,
+                          device=dev)
+        lib_ms = _time_ms(torch, lambda: acc.index_add_(0, ids, v))
+        b_ms, b_by = segment.bound_ms(v.shape[0], plan.rows, v.shape[1],
+                                      v.dtype)
+        n_empty = int((plan.offsets[1:] == plan.offsets[:-1]).sum())
+        print(f"[kernel] segment_sum {name}: {v.shape[0]} terms x "
+              f"{v.shape[1]} into {plan.rows} rows ({n_empty} empty): "
+              f"bit-identical to the plain version; kernel {k_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}), share of bound "
+              f"{b_ms / k_ms:.4f}; plain {p_ms:.4f} ms; index_add_ "
+              f"{lib_ms:.4f} ms  ({card})")
+        timed[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "bound_share": b_ms / k_ms,
+                       "library_ms": lib_ms}
+    print(f"[kernel] segment_sum bit-identical to segment_sum_plain in "
+          f"{len(timed)} cases  ({card})")
+    return {"name": "segment_sum", "route": "cuda",
+            "source": "irotavg_tpu_torch/csrc/segment_sum.cu",
+            "replaces": "irotavg_tpu/solver/graph.py:133 (XLA .at[].add "
+                        "in incidence_rmatvec; also :158-159, :180-184; "
+                        "no Pallas kernel)",
+            "max_abs_err": 0.0, **timed["5b_rmatvec_f64"], "cases": timed}
+
+
 # -- phase 3: the synthetic KITTI-sized sequence and the CLI ------------------
 
 
@@ -768,9 +921,9 @@ def rotation_rmse_deg(poses_path, ids_path, R_gt):
 
 def _run_logged(main_fn, argv, out, name):
     """``main_fn(argv)`` in-process, stdout to ``out/name.log``, with the
-    matcher's launch counters set to 0 just before and read just after.
-    Returns (log, wall seconds, launches, launches by gate); raises when
-    it returns non-zero."""
+    matcher's launch counters set to 0 just before and read just after,
+    and ``segment_sum``'s counted under ``name``.  Returns (log, wall seconds, launches, launches by gate);
+    raises when it returns non-zero."""
     import contextlib
 
     from irotavg_tpu_torch.ops import match
@@ -779,7 +932,8 @@ def _run_logged(main_fn, argv, out, name):
     with open(log_path, "w", buffering=1) as fh:           # line-buffered
         match.reset_launch_counts()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(fh):
+        with counting_segments(name), \
+                contextlib.redirect_stdout(fh):
             rc = main_fn(argv)
         wall = time.perf_counter() - t0
         launches = match.best2.launches
@@ -889,35 +1043,30 @@ def phase_prefetch(card, seq, vocab_path):
     cam = Camera(fx=fx, fy=fy, cx=cx, cy=cy, width=KITTI_W, height=KITTI_H)
     ext = ORBExtractor(n_features=2000, n_levels=8, device=dev)
     vocab = Vocabulary.load_text(vocab_path, device=dev)
-    worst, angle_equal, words = 0.0, True, 0
+    words = 0
     for voc in (None, vocab):
         pf = FramePrefetcher(imgs, ext, cam, batch=PREFETCH_BATCH, vocab=voc)
         for i, im in enumerate(imgs):
             got, want = pf.frame(i), Frame(i, im, ext, cam, vocab=voc)
-            for k in ("desc", "valid", "octave", "x", "y"):
+            for k in ("desc", "valid", "octave", "x", "y", "angle"):
                 if not np.array_equal(getattr(got, k), getattr(want, k)):
                     raise SmokeError(f"prefetch: frame {i} {k} differs from "
                                      f"per-frame extraction (vocabulary "
                                      f"{voc is not None})")
-            worst = max(worst, float(np.abs(got.angle - want.angle).max()))
-            angle_equal &= bool(np.array_equal(got.angle, want.angle))
             if voc is not None:
                 if got.bow != want.bow or not np.array_equal(
                         got.feat_nodes, want.feat_nodes):
                     raise SmokeError(f"prefetch: frame {i} BoW or node ids "
                                      f"differ from the per-frame transform")
                 words += len(got.bow)
-    if not worst <= PREFETCH_ANGLE_TOL:
-        raise SmokeError(f"prefetch: angles differ by {worst} rad")
     batch = torch.from_numpy(np.stack(imgs[:PREFETCH_BATCH])).to(dev)
     batched_ms = _median_ms(torch, lambda: ext.extract_batch(batch),
                             reps=5) / PREFETCH_BATCH
     one_ms = _median_ms(torch, lambda: ext(batch[0]), reps=5)
     print(f"[prefetch] {PREFETCH_FRAMES} frames through FramePrefetcher("
           f"batch={PREFETCH_BATCH}) equal to per-frame Frames without and "
-          f"with the vocabulary (desc, valid, octave, x, y, BoW over "
-          f"{words} words, node ids); angles max |d| {worst:.3e} rad, "
-          f"bit-equal {angle_equal}  ({card})")
+          f"with the vocabulary (desc, valid, octave, x, y, angle, BoW "
+          f"over {words} words, node ids)  ({card})")
     print(f"[prefetch] extraction {batched_ms:.3f} ms a frame batched "
           f"(B={PREFETCH_BATCH}) against {one_ms:.3f} ms one at a time "
           f"(median of 5, CUDA events, images on the device)  ({card})")
@@ -1032,6 +1181,56 @@ def phase_loop_closure(card, out, vocab):
             seq, yaml, R_gt, rb)
 
 
+def _slots_differ(a, b):
+    """``(frames, slots)`` bool: where the two arrays' bytes differ."""
+    f, k = a.shape[:2]
+    return (a.view(np.uint8).reshape(f, k, -1)
+            != b.view(np.uint8).reshape(f, k, -1)).any(-1)
+
+
+def phase_extraction_parity(card, seq):
+    """Phase 4's frames extracted on the card and on the CPU, batched by 8
+    as the CLI's prefetcher does: x, y, octave, valid, response, angle
+    and descriptors must be equal bit for bit."""
+    import torch
+
+    from irotavg_tpu_torch.frontend.orb import ORBExtractor
+    from irotavg_tpu_torch.utils.sequence import load_gray
+
+    names = sorted(os.listdir(seq))
+    imgs = np.stack([load_gray(os.path.join(seq, n)) for n in names])
+    keys = ("x", "y", "octave", "valid", "response", "angle", "desc")
+    outs, secs = {}, {}
+    for where in ("cuda", "cpu"):
+        ext = ORBExtractor(n_features=2000, n_levels=8, device=where)
+        parts, t0 = [], time.perf_counter()
+        for b in range(0, len(names), PREFETCH_BATCH):
+            o = ext.extract_batch(imgs[b:b + PREFETCH_BATCH])
+            parts.append({k: o[k].cpu().numpy() for k in keys})
+        secs[where] = time.perf_counter() - t0
+        outs[where] = {k: np.concatenate([p[k] for p in parts])
+                       for k in keys}
+    card_o, cpu_o = outs["cuda"], outs["cpu"]
+    valid = cpu_o["valid"]
+    slots = {k: _slots_differ(card_o[k], cpu_o[k]) for k in keys}
+    differ = {k: int(v.sum()) for k, v in slots.items()}
+    desc_bad = slots["desc"] & valid
+    print(f"[parity] phase 4's {len(names)} frames extracted on the card in "
+          f"{secs['cuda']:.1f} s and on the CPU in "
+          f"{secs['cpu']:.1f} s ({torch.get_num_threads()} threads), "
+          f"batched by {PREFETCH_BATCH}: {int(valid.sum())} valid keypoints; "
+          f"keypoint slots differing by key {json.dumps(differ)}; "
+          f"descriptors differing {int(desc_bad.sum())} of "
+          f"{int(valid.sum())}  ({card})")
+    if any(differ.values()):
+        f, k = np.argwhere(np.any(list(slots.values()), axis=0))[0]
+        raise SmokeError(
+            f"extraction differs between the card and the CPU; first at "
+            f"frame {f} slot {k}: octave {cpu_o['octave'][f, k]}, x "
+            f"{cpu_o['x'][f, k]}, y {cpu_o['y'][f, k]}, angle card "
+            f"{card_o['angle'][f, k]!r} / CPU {cpu_o['angle'][f, k]!r}")
+
+
 # -- phase 7: the offline pipeline --------------------------------------------
 
 
@@ -1085,6 +1284,11 @@ def phase_offline(card, out, seq, yaml, vocab, R_gt, rmse_b):
         if by_gate[gate] <= 0:
             raise SmokeError(f"the offline run never launched match_best2 "
                              f"under the {gate!r} gate")
+    n_cand = st.get("loop_candidate_pairs", 0)
+    if n_cand != PORT_OFFLINE_LOOP_CANDIDATES:
+        raise SmokeError(f"the offline run made {n_cand} loop candidates, "
+                         f"the port on the CPU "
+                         f"{PORT_OFFLINE_LOOP_CANDIDATES}")
     if not (np.isfinite(rmse)
             and rmse <= OFFLINE_RMSE_FACTOR * JAX_OFFLINE_RMSE_DEG):
         raise SmokeError(f"offline RMSE {rmse} deg is not within "
@@ -1152,6 +1356,17 @@ def kitti_chain(n, seed=5):
         Q0[j] = (Rsc.from_quat(QQ[first[j]]) * Rsc.from_quat(Q0[j - 1])
                  ).as_quat()
     return R.as_quat(), edges, QQ, Q0
+
+
+def _bits_equal(a, b):
+    """Two f64 or f32 tensors equal bit for bit (``-0.0`` is not
+    ``0.0``)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {8: torch.int64, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
 
 
 def geo_deg(Qa, Qb):
@@ -1230,7 +1445,8 @@ def phase_golden(card, out):
 
     sol = os.path.join(out, "l1_irls_out.txt")
     log_path = os.path.join(out, "l1_irls.log")
-    with open(log_path, "w") as fh, contextlib.redirect_stdout(fh):
+    with open(log_path, "w") as fh, contextlib.redirect_stdout(fh), \
+            counting_segments("phase5a_l1_irls"):
         t0 = time.perf_counter()
         rc = l1_irls.main([GOLDEN, sol, "--device", "cuda"])
         wall = time.perf_counter() - t0
@@ -1325,13 +1541,14 @@ def phase_large(card):
     print(f"[solver] 50k problem: {LARGE_N} views, {g.m} edges, built in "
           f"{time.perf_counter() - t0:.1f} s (host numpy)")
     runs = []
-    for _ in range(2):
-        with _CountCG() as cg:
-            (Q, _w, iters, score), secs = _sync_s(
+    for r in (1, 2):
+        with _CountCG() as cg, counting_segments(f"phase5b_run{r}"):
+            (Q, w, iters, score), secs = _sync_s(
                 torch, lambda: irls(g, cfg))
-        runs.append((Q, iters, secs, cg.total()))
-    Q, iters, _, cg_total = runs[1]
-    identical = torch.equal(runs[0][0], runs[1][0])
+        runs.append((Q, iters, secs, cg.total(), w))
+    Q, iters, _, cg_total, _ = runs[1]
+    identical = bool(_bits_equal(runs[0][0], runs[1][0])
+                     and _bits_equal(runs[0][4], runs[1][4]))
     Qn = so3.qnormalize(Q).cpu().numpy()
     err = float(np.degrees(2 * np.arccos(np.clip(
         np.abs(np.sum(Qn * p["Q_gt"], axis=-1)), -1, 1))).mean())
@@ -1339,8 +1556,13 @@ def phase_large(card):
           f"iterations {runs[0][3]} / {cg_total}, solve {runs[0][2]:.3f} / "
           f"{runs[1][2]:.3f} s (run 1 / run 2), final score {score:.3e}; "
           f"mean error vs GT {err:.10f} deg (JAX f64 "
-          f"{LARGE_JAX_F64_MEAN_ERR_DEG:.10f}); second run bit-identical: "
-          f"{identical}  ({card})")
+          f"{LARGE_JAX_F64_MEAN_ERR_DEG:.10f}); second run bit-identical "
+          f"(rotations and weights): {identical}; segment_sum launches "
+          f"{SEGMENT_LAUNCHES['phase5b_run1']} / "
+          f"{SEGMENT_LAUNCHES['phase5b_run2']}  ({card})")
+    if not identical or runs[0][1] != iters or runs[0][3] != cg_total:
+        raise SmokeError("50k solve: two runs in the default mode are not "
+                         "bit-identical")
     if not (iters < cfg.max_iters and np.isfinite(Qn).all()):
         raise SmokeError(f"50k solve: {iters} IRLS iterations or non-finite")
     if abs(err - LARGE_JAX_F64_MEAN_ERR_DEG) >= LARGE_TOL_DEG:
@@ -1367,7 +1589,7 @@ def phase_kitti_resolve(card):
             eng.add_edge(int(i), int(j), q)
         eng.Q = Q0.copy()
         eng.fix_pose(0)
-        with _CountCG() as cg:
+        with _CountCG() as cg, counting_segments(f"phase5c_{name}"):
             stats, secs = _sync_s(torch, lambda: eng.rot_avg(5_000_000))
         out[name] = (eng.Q.copy(), stats, secs, cg.total())
         print(f"[solver] KITTI-length re-solve, {name}: {KITTI_VIEWS} views, "
@@ -1397,9 +1619,10 @@ def phase_windows(card):
     dev = _device(torch)
     problems = bench_windows(N_WINDOWS)
     times = []
-    for _ in range(4):           # the first call includes CUDA start-up
-        (Qb, wb, itb, _), secs = _sync_s(torch, lambda: solve_windows(
-            problems, m_pad=64, n_pad=16, device=dev))
+    for r in range(4):           # the first call includes CUDA start-up
+        with counting_segments(f"phase5d_batched{r}"):
+            (Qb, wb, itb, _), secs = _sync_s(torch, lambda: solve_windows(
+                problems, m_pad=64, n_pad=16, device=dev))
         times.append(secs)
     t_batch = statistics.median(times[1:])
     worst, iters_equal, singles = 0.0, True, []
@@ -1436,8 +1659,6 @@ def phase_solver(card, out):
 
 # -- phase 8: the distributed solver ------------------------------------------
 
-# the sharded solve at world size 1 against the single-device solve
-DIST_TOL_DEG = 1e-6
 DIST_L1_ITERS = 5             # sharded_ravg_pipeline's default warmup
 
 
@@ -1453,12 +1674,10 @@ def phase_distributed(card, out):
     """8. ``parallel/`` on the card: phase 5b's 50k-view f64 problem
     through ``sharded_irls`` and ``sharded_ravg_pipeline`` at world size 1
     over NCCL, against the single-device ``irls`` on the same schedules,
-    then the scaling probe at world size 1.  CUDA's atomic ``index_add_``
-    sums in a different order on every run, which moves this problem's
-    solve by up to 2.3e-5 deg between two runs (measured on an NVIDIA H100
-    80GB HBM3 at 700 W), so the < 1e-6 deg check runs both sides
-    under ``torch.use_deterministic_algorithms``; a second pass in the
-    default mode is timed and held to the JAX mean error."""
+    then the scaling probe at world size 1.  Every scatter-add is the
+    fixed-order ``segment_sum``, so in the default mode the sharded solve
+    must be the single-device one to the bit (0 deg apart, the same IRLS
+    and CG iterations), and its mean error within 0.01 deg of JAX's."""
     import contextlib
     import dataclasses
     import io
@@ -1499,44 +1718,37 @@ def phase_distributed(card, out):
             ("sharded_ravg_pipeline", lambda: sharded_ravg_pipeline(
                 mesh, l1_iters=DIST_L1_ITERS, cfg=cfg)(gs), True))
         runs = {}
-        for mode in ("deterministic", "default"):
-            torch.use_deterministic_algorithms(mode == "deterministic",
-                                               warn_only=True)
-            try:
-                for name, fn, sharded in solves:
-                    mesh.all_reduces = 0
-                    with _CountCG(sharded) as cg:
-                        (Q, _w, iters, _s), secs = _sync_s(torch, fn)
-                    runs[mode, name] = (Q, iters, cg.total(), secs,
-                                        mesh.all_reduces)
-            finally:
-                torch.use_deterministic_algorithms(False)
+        for name, fn, sharded in solves:
+            mesh.all_reduces = 0
+            with _CountCG(sharded) as cg, \
+                    counting_segments(f"phase8_{name}"):
+                (Q, _w, iters, _s), secs = _sync_s(torch, fn)
+            runs[name] = (Q, iters, cg.total(), secs, mesh.all_reduces)
         print(f"[dist] world size {mesh.size}, backend "
               f"{dist.get_backend()}, 50k problem: {LARGE_N} views, {g.m} "
               f"edges, f64  ({card})")
         failures = []
-        for mode in ("deterministic", "default"):
-            for single, sharded in (("irls", "sharded_irls"),
-                                    ("two-phase irls",
-                                     "sharded_ravg_pipeline")):
-                Qa, ia, ca, sa, _ = runs[mode, single]
-                Qb, ib, cb, sb, nb = runs[mode, sharded]
-                geo = float(geo_deg(Qa.cpu().numpy(), Qb.cpu().numpy()).max())
-                err = _mean_err_deg(Qb, p["Q_gt"])
-                print(f"[dist] {mode}: {sharded} IRLS iterations {ib}, CG "
-                      f"iterations {cb}, {nb} all_reduces, {sb:.3f} s; "
-                      f"{single} {ia} / {ca}, {sa:.3f} s; max geodesic "
-                      f"{geo:.3e} deg; mean error vs GT {err:.10f} deg  "
-                      f"({card})")
-                if mode == "deterministic" and not (
-                        ia == ib and ca == cb and geo < DIST_TOL_DEG):
-                    failures.append(f"{sharded} ({mode}): iterations "
-                                    f"{ib}/{cb} vs {ia}/{ca}, geodesic {geo}")
-                if sharded == "sharded_irls" and abs(
-                        err - LARGE_JAX_F64_MEAN_ERR_DEG) >= LARGE_TOL_DEG:
-                    failures.append(f"sharded_irls ({mode}) mean error {err} "
-                                    f"deg not within {LARGE_TOL_DEG} of "
-                                    f"{LARGE_JAX_F64_MEAN_ERR_DEG}")
+        for single, sharded in (("irls", "sharded_irls"),
+                                ("two-phase irls", "sharded_ravg_pipeline")):
+            Qa, ia, ca, sa, _ = runs[single]
+            Qb, ib, cb, sb, nb = runs[sharded]
+            geo = float(geo_deg(Qa.cpu().numpy(), Qb.cpu().numpy()).max())
+            same = _bits_equal(Qa, Qb)
+            err = _mean_err_deg(Qb, p["Q_gt"])
+            print(f"[dist] {sharded} IRLS iterations {ib}, CG iterations "
+                  f"{cb}, {nb} all_reduces, {sb:.3f} s; {single} {ia} / "
+                  f"{ca}, {sa:.3f} s; max geodesic {geo:.3e} deg, "
+                  f"bit-identical {same}; mean error vs GT {err:.10f} deg; "
+                  f"segment_sum launches "
+                  f"{SEGMENT_LAUNCHES['phase8_' + sharded]}  ({card})")
+            if not (ia == ib and ca == cb and geo == 0.0):
+                failures.append(f"{sharded}: iterations {ib}/{cb} vs "
+                                f"{ia}/{ca}, geodesic {geo}")
+            if sharded == "sharded_irls" and abs(
+                    err - LARGE_JAX_F64_MEAN_ERR_DEG) >= LARGE_TOL_DEG:
+                failures.append(f"sharded_irls mean error {err} deg not "
+                                f"within {LARGE_TOL_DEG} of "
+                                f"{LARGE_JAX_F64_MEAN_ERR_DEG}")
         if failures:
             raise SmokeError("distributed solve: " + "; ".join(failures))
     finally:
@@ -1604,8 +1816,8 @@ def phase_resume(card, out, seq, gt, yaml, full):
     """Phase 3's sequence in two parts through the CLI: ``--max_frames``
     half with ``--checkpoint`` and per-frame extraction (``--prefetch
     1``), then ``--resume`` with the default batched extraction; the kept
-    frames, connections and poses must be phase 3's (``full``: its view
-    graph and output directory)."""
+    frames, connections and poses must be phase 3's, the poses bit for
+    bit (``full``: its view graph and output directory)."""
     res = os.path.join(out, "out_resume")
     base = ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
             "--out_dir", res, "--device", "cuda", "--checkpoint"]
@@ -1638,7 +1850,7 @@ def phase_resume(card, out, seq, gt, yaml, full):
     if not resumed or la <= 0 or lb <= 0:
         raise SmokeError("the two-part run did not resume or never launched "
                          "match_best2")
-    if ids != ids3 or not same_conn or not np.radians(d.max()) < 1e-9:
+    if ids != ids3 or not same_conn or not bit_equal:
         raise SmokeError("the resumed run differs from phase 3's "
                          "uninterrupted run")
     return la + lb, {"part1": gate_a, "part2": gate_b}
@@ -1918,11 +2130,13 @@ def main(argv=None) -> int:
               "script; run it from the root of a checkout", file=sys.stderr)
         return 1
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    t_start = time.perf_counter()
     frames = []              # rendered sequences, removed at the end
     try:
         card = phase_device()
         phase_build(card)
         kern = phase_kernels(card)
+        seg = phase_segment_kernel(card)
         main_launches, main_by_gate, phase3 = phase_main_path(card, args.out)
         frames.append(phase3[0])
         vocab = vocab_file(args.out)
@@ -1930,6 +2144,7 @@ def main(argv=None) -> int:
         loop, seq, yaml, R_gt, rmse_b = phase_loop_closure(
             card, os.path.join(args.out, "loop"), vocab)
         frames.append(seq)
+        phase_extraction_parity(card, seq)
         offline_launches, offline_by_gate = phase_offline(
             card, os.path.join(args.out, "loop"), seq, yaml, vocab, R_gt,
             rmse_b)
@@ -1955,7 +2170,11 @@ def main(argv=None) -> int:
         "phase6_resume": resume_by_gate, "phase7_offline": offline_by_gate,
         "phase10_surfaces": surf_by_gate}
     kern["prefetch_extraction_ms"] = prefetch
-    print(json.dumps({"kernels": [kern]}))
+    print(f"[smoke] every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    seg["launches"] = sum(SEGMENT_LAUNCHES.values())
+    seg["launches_by_path"] = dict(SEGMENT_LAUNCHES)
+    print(json.dumps({"kernels": [kern, seg]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

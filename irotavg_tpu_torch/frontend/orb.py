@@ -112,12 +112,11 @@ def _extract_level(img, th_hi, th_lo, k_budget: int):
     cy = torch.clamp((top_cell // wc) * SEL_CELL + off // SEL_CELL, 0, h - 1)
     cx = torch.clamp((top_cell % wc) * SEL_CELL + off % SEL_CELL, 0, w - 1)
 
-    # the moment sums run image by image on a fresh (K, 31, 31) tensor, as
-    # for one image: CUDA's reduction layout depends on the number of
-    # outputs and on the data's alignment, so one call over B*K patches
-    # could round differently from B calls over K
+    # one call over the B*K patches: ic_angles sums in f64, so the order
+    # a device adds in (which on CUDA depends on the output count) does
+    # not reach the f32 angle, and a batch gives per-frame angles
     ip = _patches(pad_reflect101(img, PATCH_R), cy, cx, 15, PATCH_R)
-    angles = torch.stack([ic_angles(ip[b].clone()) for b in range(B)])
+    angles = ic_angles(ip.reshape(B * k, 31, 31)).reshape(B, k)
     # quantise like the reference's uint8 blurred image (half to even)
     bp = torch.round(pad_reflect101(gaussian_blur7(img), PATCH_R))
     desc = steered_brief(

@@ -7,6 +7,12 @@ Each pattern point (px, py) is sampled at ``x = round(px*a - py*b)``,
 the blurred level, and bit j is ``I(p_2j) < I(p_2j+1)``.  Descriptors are
 8 words of 32 bits, bit j in word j // 32 at position j % 32, held as
 int32 bit patterns (the reference's uint32 words).
+
+``cos``/``sin`` of the f32 angle and the rotated offsets are computed in
+f64 before rounding (the reference uses f32): a device's f64 ``cos`` and
+``sin`` differ from another's by an ulp or two, far below the distance
+of any real offset from a rounding tie, so every device samples the same
+pixels.
 """
 
 from __future__ import annotations
@@ -23,9 +29,10 @@ def steered_brief(patches, angles):
     """(K, 41, 41) blurred patches and (K,) angles -> (K, 8) int32."""
     dev = patches.device
     pts = torch.from_numpy(ORB_PATTERN.reshape(512, 2)).to(dev,
-                                                           torch.float32)
-    a = torch.cos(angles)[:, None]
-    b = torch.sin(angles)[:, None]
+                                                           torch.float64)
+    ang = angles.to(torch.float64)
+    a = torch.cos(ang)[:, None]
+    b = torch.sin(ang)[:, None]
     px = pts[None, :, 0]
     py = pts[None, :, 1]
     xo = torch.round(px * a - py * b).long() + PATCH_R

@@ -1,7 +1,14 @@
 """Intensity-centroid keypoint orientation (port of
 ``irotavg_tpu/ops/orient.py``; IC_Angle, src/ORBExtractor.cpp:102-129):
 moments m10 = sum u*I and m01 = sum v*I over the radius-15 discretised
-disc, angle = atan2(m01, m10) in [0, 2pi)."""
+disc, angle = atan2(m01, m10) in [0, 2pi).
+
+The moments, ``atan2`` and the wrap run in f64 and the angle is cast to
+f32 once, at the end (the reference sums in f32).  An f32 pixel times an
+integer offset in [-15, 15] is exact in f64, so the sums of 961 products
+carry an error near 1e-16 relative whatever order a device adds them in,
+and the f32 angle is the same on the CPU and on a GPU unless its f64
+value lies within a few f64 ulps of an f32 rounding boundary."""
 
 from __future__ import annotations
 
@@ -43,12 +50,13 @@ def orb_disc_mask() -> np.ndarray:
 
 
 def ic_angles(patches):
-    """Angles (radians, [0, 2pi)) for (K, 31, 31) f32 patches."""
+    """Angles (radians, [0, 2pi), f32) for (K, 31, 31) f32 patches."""
     dev = patches.device
-    mask = torch.from_numpy(orb_disc_mask()).to(dev, torch.float32)
-    uu = torch.arange(-HALF_PATCH, HALF_PATCH + 1, dtype=torch.float32,
+    mask = torch.from_numpy(orb_disc_mask()).to(dev, torch.float64)
+    uu = torch.arange(-HALF_PATCH, HALF_PATCH + 1, dtype=torch.float64,
                       device=dev)
-    m10 = torch.sum(patches * (mask * uu[None, :])[None], dim=(1, 2))
-    m01 = torch.sum(patches * (mask * uu[:, None])[None], dim=(1, 2))
+    p = patches.to(torch.float64)
+    m10 = torch.sum(p * (mask * uu[None, :])[None], dim=(1, 2))
+    m01 = torch.sum(p * (mask * uu[:, None])[None], dim=(1, 2))
     ang = torch.atan2(m01, m10)
-    return torch.where(ang < 0, ang + 2 * math.pi, ang)
+    return torch.where(ang < 0, ang + 2 * math.pi, ang).to(torch.float32)

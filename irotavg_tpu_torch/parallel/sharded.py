@@ -42,7 +42,7 @@ from irotavg_tpu_torch import so3
 from irotavg_tpu_torch.device import pick_device
 from irotavg_tpu_torch.solver.graph import (
     RotationGraph, diag_partial, guard_diag, incidence_matvec,
-    incidence_rmatvec,
+    incidence_rmatvec, rmatvec_plan,
 )
 from irotavg_tpu_torch.solver.graph import _pcg as _graph_pcg
 from irotavg_tpu_torch.solver.irls import (
@@ -189,18 +189,19 @@ def shard_graph(g: RotationGraph, mesh: GraphMesh) -> RotationGraph:
 # ---------------------------------------------------------------------------
 
 
-def _local_matvec(edges, coef, x, free_mask, edge_mask, n):
+def _local_matvec(edges, coef, x, free_mask, edge_mask, n, plan):
     """This shard's part of ``A' diag(coef) A x`` (reduce to combine);
-    ``coef (m, 1)`` masked."""
+    ``coef (m, 1)`` masked; ``plan`` the shard's :func:`rmatvec_plan`."""
     e = incidence_matvec(edges, x, free_mask, edge_mask) * coef
-    return incidence_rmatvec(edges, e, free_mask, edge_mask, n)
+    return incidence_rmatvec(edges, e, free_mask, edge_mask, n, plan)
 
 
 # the reference's name for the raw diagonal partial
 _local_diag = diag_partial
 
 
-def _pcg(mesh, edges, coef, rhs, free_mask, edge_mask, *, tol, maxiter):
+def _pcg(mesh, edges, coef, rhs, free_mask, edge_mask, plan, *, tol,
+         maxiter):
     """Jacobi-preconditioned CG on replicated ``(n, 3)`` vectors, one
     ``all_reduce`` per matvec; returns ``(x, iterations)``."""
     n = rhs.shape[-2]
@@ -208,7 +209,7 @@ def _pcg(mesh, edges, coef, rhs, free_mask, edge_mask, *, tol, maxiter):
 
     def matvec(x):
         return mesh.all_reduce(_local_matvec(edges, c, x, free_mask,
-                                             edge_mask, n))
+                                             edge_mask, n, plan))
 
     # the d > 0 guard after the reduction, so a node with no edge in some
     # shard does not pick up a 1 from it
@@ -220,10 +221,14 @@ def _pcg(mesh, edges, coef, rhs, free_mask, edge_mask, *, tol, maxiter):
 
 
 def _irls_step_shard(mesh, edges, QQ, edge_mask, weights, Q, f, node_mask,
-                     cfg: IRLSConfig):
+                     cfg: IRLSConfig, plan=None):
     """One IRLS iteration on this rank's edge block; ``Q`` replicated.
-    Returns (new_Q replicated, new local weights, score tensor)."""
+    Returns (new_Q replicated, new local weights, score tensor).
+    ``plan``: :func:`rmatvec_plan` of the block (built here when not
+    given; :func:`_run` builds it once for all its steps)."""
     n = Q.shape[-2]
+    if plan is None:
+        plan = rmatvec_plan(edges, n)
     free = (torch.arange(n, device=Q.device) >= f) & node_mask
     w3 = so3.log_map(so3.delta_rel(edges, QQ, Q))[..., :3]
     w3 = torch.where(edge_mask[..., None], w3, torch.zeros_like(w3))
@@ -231,9 +236,9 @@ def _irls_step_shard(mesh, edges, QQ, edge_mask, weights, Q, f, node_mask,
     wsq = weights * weights
     coef = torch.where(edge_mask, wsq, torch.zeros_like(wsq))
     rhs = mesh.all_reduce(incidence_rmatvec(edges, wsq[..., None] * w3,
-                                            free, edge_mask, n))
-    X, _ = _pcg(mesh, edges, coef, rhs, free, edge_mask, tol=cfg.cg_tol,
-                maxiter=cfg.cg_maxiter)
+                                            free, edge_mask, n, plan))
+    X, _ = _pcg(mesh, edges, coef, rhs, free, edge_mask, plan,
+                tol=cfg.cg_tol, maxiter=cfg.cg_maxiter)
 
     E = incidence_matvec(edges, X, free, edge_mask) - w3
     new_weights = update_weights(cfg.cost, E, weights, cfg.sigma)
@@ -256,9 +261,11 @@ def _run(mesh, g, weights, cfg):
     """IRLS to convergence on this rank's block: (Q, local weights, iters,
     score), the stop read from the replicated score."""
     Q, score, it = g.Q, math.inf, 0
+    plan = rmatvec_plan(g.edges, g.n)
     while score > cfg.change_th and it < cfg.max_iters:
         Q, weights, s = _irls_step_shard(mesh, g.edges, g.QQ, g.edge_mask,
-                                         weights, Q, g.f, g.node_mask, cfg)
+                                         weights, Q, g.f, g.node_mask, cfg,
+                                         plan)
         score, it = float(s), it + 1
     return Q, weights, it, score
 

@@ -14,6 +14,12 @@ nodes.  This is the reference's ``vmap`` over windows.
 Two solves of ``(A' diag(coef) A) X = rhs``: a dense Cholesky with the
 reference's singularity rescue (:func:`laplacian_cho_solve`) and the
 matrix-free Jacobi-preconditioned CG (:func:`laplacian_cg_solve`).
+
+Every scatter-add (the reference's ``.at[].add``) is a fixed-order segment
+sum (``ops/segment.py``): each node's terms are added in the order of
+their index, as on the CPU, so a solve on the card gives the same answer
+on every run.  The plan that sorts the terms by node is built once per
+graph (:func:`rmatvec_plan`) and reused by every matvec of a solve.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import dataclasses
 
 import torch
 
+from irotavg_tpu_torch.ops.segment import SegmentPlan, segment_plan, \
+    segment_sum
 from irotavg_tpu_torch.so3 import take_rows
 
 # CG iterations run on the device between two host reads of the stopping
@@ -117,12 +125,32 @@ class RotationGraph:
             node_mask=unmask(self.node_mask, dn))
 
 
-def _add_rows(out, idx, e):
-    """``out[idx] += e`` row by row, per batch entry."""
-    if out.dim() == 2:
-        out.index_add_(0, idx, e)
-    else:
-        out.scatter_add_(-2, idx[..., None].expand_as(e), e)
+def _row_plan(idx, n) -> SegmentPlan:
+    """The plan for terms going to rows ``idx (*B, N)`` of each batch
+    entry's own ``n`` rows: the ids flattened to ``b*n + idx``."""
+    batch = idx.shape[:-1]
+    nb = batch.numel()
+    if batch:
+        base = torch.arange(nb, device=idx.device).view(*batch, 1) * n
+        idx = idx + base
+    return segment_plan(idx, nb * n)
+
+
+def rmatvec_plan(edges, n, batch=None) -> SegmentPlan:
+    """The plan of :func:`incidence_rmatvec` for ``edges (*B, m, 2)``
+    over ``n`` nodes: the terms ``cat(e, -e)`` go to ``cat(j, i)``, so
+    each node adds its ``+e`` terms in edge order, then its ``-e`` terms.
+    ``batch`` broadcasts the edges over leading dims of the values."""
+    if batch is not None:
+        edges = edges.expand(*batch, *edges.shape[-2:])
+    return _row_plan(torch.cat([edges[..., 1], edges[..., 0]], dim=-1), n)
+
+
+def _sum_rows(plan, vals, n):
+    """Segment sum of ``vals (*B, N, k)`` by ``plan`` -> ``(*B, n, k)``."""
+    k = vals.shape[-1]
+    out = segment_sum(vals.reshape(-1, k), plan)
+    return out.view(*vals.shape[:-2], n, k)
 
 
 def incidence_matvec(edges, x_nodes, free_mask, edge_mask):
@@ -145,14 +173,14 @@ def incidence_fixed_matvec(edges, x_nodes, free_mask, edge_mask):
     return torch.where(edge_mask[..., None], out, torch.zeros_like(out))
 
 
-def incidence_rmatvec(edges, e, free_mask, edge_mask, n):
+def incidence_rmatvec(edges, e, free_mask, edge_mask, n, plan=None):
     """``A.T @ e``: ``+e_k`` to node j, ``-e_k`` to node i; ``(*B, n, k)``
-    zeroed at fixed nodes."""
+    zeroed at fixed nodes.  ``plan``: :func:`rmatvec_plan` of ``edges``
+    (built here when not given)."""
     e = torch.where(edge_mask[..., None], e, torch.zeros_like(e))
-    out = torch.zeros(e.shape[:-2] + (n, e.shape[-1]), dtype=e.dtype,
-                      device=e.device)
-    _add_rows(out, edges[..., 1], e)
-    _add_rows(out, edges[..., 0], -e)
+    if plan is None:
+        plan = rmatvec_plan(edges, n, e.shape[:-2])
+    out = _sum_rows(plan, torch.cat([e, -e], dim=-2), n)
     return torch.where(free_mask[..., None], out, torch.zeros_like(out))
 
 
@@ -161,12 +189,11 @@ def diag_partial(edges, c, n):
     (*B, m, k)``, one column per ``k``, before :func:`guard_diag`: the
     sum over ``edges`` only, so that the partials of disjoint edge blocks
     add up to the whole graph's (``parallel/sharded.py`` reduces them
-    over the ranks, then guards)."""
-    d = torch.zeros(c.shape[:-2] + (n, c.shape[-1]), dtype=c.dtype,
-                    device=c.device)
-    _add_rows(d, edges[..., 0], c)
-    _add_rows(d, edges[..., 1], c)
-    return d
+    over the ranks, then guards).  Each node adds its terms as ``i``,
+    then as ``j``, in edge order."""
+    edges = edges.expand(*c.shape[:-2], *edges.shape[-2:])
+    plan = _row_plan(torch.cat([edges[..., 0], edges[..., 1]], dim=-1), n)
+    return _sum_rows(plan, torch.cat([c, c], dim=-2), n)
 
 
 def guard_diag(d, free_mask):
@@ -191,12 +218,12 @@ def laplacian_diag(edges, coef, free_mask, edge_mask, n):
     return _diag(edges, c[..., None], free_mask, n)[..., 0]
 
 
-def laplacian_dense(edges, coef, free_mask, edge_mask, n, ridge=0.0):
-    """Dense ``A.T diag(coef) A`` with identity rows/cols on fixed nodes.
-
-    ``coef (*B, m)``; ``edges``, ``free_mask`` and ``edge_mask`` broadcast
-    to it (one graph may carry several coefficient rows).  Returns
-    ``(*B, n, n)``."""
+def dense_terms(edges, coef, free_mask, edge_mask, n):
+    """The terms of the dense ``A.T diag(coef) A`` as one column: ``(ids,
+    vals, free)``, ``ids`` flat indices into the ``(*B, n, n)`` matrices
+    and ``free`` the ``(*B, n)`` free mask.  The four blocks ``(i, i)``,
+    ``(j, j)``, ``(i, j)``, ``(j, i)`` come one after the other, each in
+    edge order, so every entry adds its terms in the reference's order."""
     c = torch.where(edge_mask, coef, torch.zeros_like(coef))
     batch = c.shape[:-1]
     i = edges[..., 0].expand(c.shape)
@@ -208,15 +235,27 @@ def laplacian_dense(edges, coef, free_mask, edge_mask, n, ridge=0.0):
     zero = torch.zeros_like(c)
     base = torch.arange(c[..., 0].numel(), device=c.device).view(
         *batch, 1) * (n * n)
-    L = torch.zeros(c[..., 0].numel() * n * n, dtype=c.dtype, device=c.device)
-    for r, s, v in ((i, i, torch.where(fi, c, zero)),
-                    (j, j, torch.where(fj, c, zero)),
-                    (i, j, torch.where(both, -c, zero)),
-                    (j, i, torch.where(both, -c, zero))):
-        L.index_add_(0, (base + r * n + s).reshape(-1), v.reshape(-1))
-    fixed_diag = torch.where(free, torch.full_like(free, ridge, dtype=c.dtype),
-                             torch.ones_like(free, dtype=c.dtype))
-    return L.view(*batch, n, n) + torch.diag_embed(fixed_diag)
+    blocks = ((i, i, torch.where(fi, c, zero)),
+              (j, j, torch.where(fj, c, zero)),
+              (i, j, torch.where(both, -c, zero)),
+              (j, i, torch.where(both, -c, zero)))
+    ids = torch.cat([(base + r * n + s).reshape(-1) for r, s, _ in blocks])
+    vals = torch.cat([v.reshape(-1) for _, _, v in blocks])
+    return ids, vals, free
+
+
+def laplacian_dense(edges, coef, free_mask, edge_mask, n, ridge=0.0):
+    """Dense ``A.T diag(coef) A`` with identity rows/cols on fixed nodes.
+
+    ``coef (*B, m)``; ``edges``, ``free_mask`` and ``edge_mask`` broadcast
+    to it (one graph may carry several coefficient rows).  Returns
+    ``(*B, n, n)``."""
+    ids, vals, free = dense_terms(edges, coef, free_mask, edge_mask, n)
+    L = segment_sum(vals, segment_plan(ids, free.numel() * n))
+    fixed_diag = torch.where(free, torch.full_like(free, ridge,
+                                                   dtype=vals.dtype),
+                             torch.ones_like(free, dtype=vals.dtype))
+    return L.view(free.shape + (n,)) + torch.diag_embed(fixed_diag)
 
 
 def _cho_solve(L, rhs):
@@ -298,7 +337,7 @@ def _pcg(matvec, dinv, b, tol, maxiter, dims):
 
 
 def laplacian_cg_solve(edges, coef, rhs, free_mask, edge_mask, *, tol=1e-10,
-                       maxiter=500, per_column=False):
+                       maxiter=500, per_column=False, plan=None):
     """Matrix-free Jacobi-preconditioned CG for ``(A.T diag(coef) A) x =
     rhs``; the matvec is two gathers and two scatter-adds.
 
@@ -306,15 +345,18 @@ def laplacian_cg_solve(edges, coef, rhs, free_mask, edge_mask, *, tol=1e-10,
     once, as one system with shared step sizes (the reference); with
     ``per_column`` each column is its own CG with its own stop (the
     reference's ``vmap`` over columns), and ``coef`` may then be ``(*B,
-    m, k)``, one weight row per column.  Returns ``(x, iters)``, ``iters``
-    of shape ``*B`` (``(*B, k)`` per column)."""
+    m, k)``, one weight row per column.  ``plan``: :func:`rmatvec_plan`
+    of ``edges``, built here once when not given.  Returns ``(x, iters)``,
+    ``iters`` of shape ``*B`` (``(*B, k)`` per column)."""
     n = rhs.shape[-2]
     c = coef if coef.dim() == rhs.dim() else coef[..., None]
     c = torch.where(edge_mask[..., None], c, torch.zeros_like(c))
+    if plan is None:
+        plan = rmatvec_plan(edges, n, rhs.shape[:-2])
 
     def matvec(x):
         e = incidence_matvec(edges, x, free_mask, edge_mask) * c
-        return incidence_rmatvec(edges, e, free_mask, edge_mask, n)
+        return incidence_rmatvec(edges, e, free_mask, edge_mask, n, plan)
 
     dinv = 1.0 / _diag(edges, c, free_mask, n)
     b = torch.where(free_mask[..., None], rhs, torch.zeros_like(rhs))

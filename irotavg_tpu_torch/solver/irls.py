@@ -21,7 +21,7 @@ import torch
 from irotavg_tpu_torch import so3
 from irotavg_tpu_torch.solver.graph import (
     RotationGraph, incidence_matvec, incidence_rmatvec, laplacian_cg_solve,
-    laplacian_cho_solve,
+    laplacian_cho_solve, rmatvec_plan,
 )
 
 
@@ -123,8 +123,9 @@ class IRLSConfig:
     cg_maxiter: int = 1000
 
 
-def _solve_wls(g: RotationGraph, coef, rhs, cfg: IRLSConfig):
-    """Solve ``(A' diag(coef) A) X = rhs`` over free nodes; X=0 on fixed."""
+def _solve_wls(g: RotationGraph, coef, rhs, cfg: IRLSConfig, plan):
+    """Solve ``(A' diag(coef) A) X = rhs`` over free nodes; X=0 on fixed.
+    ``plan``: the graph's :func:`rmatvec_plan`, for CG's matvecs."""
     free = g.free_mask()
     if cfg.backend == "dense":
         X = laplacian_cho_solve(g.edges, coef, rhs, free, g.edge_mask, g.n,
@@ -132,7 +133,8 @@ def _solve_wls(g: RotationGraph, coef, rhs, cfg: IRLSConfig):
         return torch.where(free[..., None], X, torch.zeros_like(X))
     if cfg.backend == "cg":
         X, _ = laplacian_cg_solve(g.edges, coef, rhs, free, g.edge_mask,
-                                  tol=cfg.cg_tol, maxiter=cfg.cg_maxiter)
+                                  tol=cfg.cg_tol, maxiter=cfg.cg_maxiter,
+                                  plan=plan)
         return X
     raise ValueError(f"Unknown backend {cfg.backend!r}")
 
@@ -145,17 +147,21 @@ def free_mean(X, free):
     return torch.where(free, norms, torch.zeros_like(norms)).sum(-1) / n_free
 
 
-def irls_step(g: RotationGraph, weights, cfg: IRLSConfig):
-    """One IRLS iteration. Returns (new_Q, new_weights, score tensor)."""
+def irls_step(g: RotationGraph, weights, cfg: IRLSConfig, plan=None):
+    """One IRLS iteration. Returns (new_Q, new_weights, score tensor).
+    ``plan``: :func:`rmatvec_plan` of ``g.edges`` (built here when not
+    given; :func:`irls` builds it once for all its steps)."""
     free = g.free_mask()
+    if plan is None:
+        plan = rmatvec_plan(g.edges, g.n)
     w3 = so3.log_map(so3.delta_rel(g.edges, g.QQ, g.Q))[..., :3]
     w3 = torch.where(g.edge_mask[..., None], w3, torch.zeros_like(w3))
 
     wsq = weights * weights
     coef = torch.where(g.edge_mask, wsq, torch.zeros_like(wsq))
     rhs = incidence_rmatvec(g.edges, wsq[..., None] * w3, free, g.edge_mask,
-                            g.n)
-    X = _solve_wls(g, coef, rhs, cfg)
+                            g.n, plan)
+    X = _solve_wls(g, coef, rhs, cfg, plan)
 
     E = incidence_matvec(g.edges, X, free, g.edge_mask) - w3
     new_weights = update_weights(cfg.cost, E, weights, cfg.sigma)
@@ -181,8 +187,10 @@ def irls(g: RotationGraph, cfg: IRLSConfig = IRLSConfig(), weights=None):
     score = torch.full(batch, math.inf, dtype=g.dtype, device=dev)
     it = torch.zeros(batch, dtype=torch.int64, device=dev)
     active = (score > cfg.change_th) & (it < cfg.max_iters)
+    plan = rmatvec_plan(g.edges, g.n)
     while bool(active.any()):
-        Q2, w2, s2 = irls_step(dataclasses.replace(g, Q=Q), weights, cfg)
+        Q2, w2, s2 = irls_step(dataclasses.replace(g, Q=Q), weights, cfg,
+                               plan)
         Q = torch.where(active[..., None, None], Q2, Q)
         weights = torch.where(active[..., None], w2, weights)
         score = torch.where(active, s2, score)

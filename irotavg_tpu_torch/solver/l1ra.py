@@ -23,7 +23,7 @@ import torch
 from irotavg_tpu_torch import so3
 from irotavg_tpu_torch.solver.graph import (
     RotationGraph, incidence_matvec, incidence_rmatvec, laplacian_cg_solve,
-    laplacian_dense,
+    laplacian_dense, rmatvec_plan,
 )
 from irotavg_tpu_torch.solver.irls import free_mean
 
@@ -45,9 +45,10 @@ class L1RAConfig:
     cg_maxiter: int = 1000
 
 
-def _newton_dx(edges, sigx, w1p, free, emask, n, cfg: L1RAConfig):
+def _newton_dx(edges, sigx, w1p, free, emask, n, cfg: L1RAConfig, plan):
     """The Newton direction ``(A' diag(sigx) A) dx = w1p`` of every lane:
-    ``sigx (*B, m, L)``, ``w1p (*B, n, L)``, one system per lane."""
+    ``sigx (*B, m, L)``, ``w1p (*B, n, L)``, one system per lane;
+    ``plan`` is the graph's :func:`rmatvec_plan`."""
     if cfg.backend == "dense":
         # a failed factorisation is zeroed rather than rescued, like the
         # reference (its 3-axis vmap would run both branches of a cond)
@@ -61,19 +62,20 @@ def _newton_dx(edges, sigx, w1p, free, emask, n, cfg: L1RAConfig):
     elif cfg.backend == "cg":
         dx, _ = laplacian_cg_solve(edges, sigx, w1p, free, emask,
                                    tol=cfg.cg_tol, maxiter=cfg.cg_maxiter,
-                                   per_column=True)
+                                   per_column=True, plan=plan)
     else:
         raise ValueError(f"Unknown backend {cfg.backend!r}")
     ok = torch.isfinite(dx) & free[..., None]
     return torch.where(ok, dx, torch.zeros_like(dx))
 
 
-def _l1decode_lanes(y, edges, free, emask, n, cfg: L1RAConfig):
+def _l1decode_lanes(y, edges, free, emask, n, cfg: L1RAConfig, plan):
     """Scalar l1 decodes ``argmin_x ||A x - y||_1`` from x0 = 0, one per
     lane: ``y (*B, m, L)`` holds L right-hand sides of each graph
     ``edges (*B, m, 2)``.  Returns x ``(*B, n, L)``.
 
-    Every lane runs the reference's decoder (``_l1decode_pd_single``
+    ``plan``: :func:`rmatvec_plan` of ``edges``.  Every lane runs the
+    reference's decoder (``_l1decode_pd_single``
     under ``vmap``): its own Newton steps, backtracking line search and
     stop, and a lane that has stopped is frozen.  Per-lane scalars are
     ``(*B, 1, L)``; all ``(m,)`` quantities are masked by ``emask``.  The
@@ -96,7 +98,7 @@ def _l1decode_lanes(y, edges, free, emask, n, cfg: L1RAConfig):
         return incidence_matvec(edges, x, free, emask)
 
     def Atop(e):
-        return incidence_rmatvec(edges, e, free, emask, n)
+        return incidence_rmatvec(edges, e, free, emask, n, plan)
 
     def pin(fu1, fu2, lamu1, lamu2, u):
         """Neutral interior values on padded rows."""
@@ -146,7 +148,7 @@ def _l1decode_lanes(y, edges, free, emask, n, cfg: L1RAConfig):
         sigx = sig1 - sig2 * sig2 / sig1
         w1 = -(1.0 / tau) * Atop(-inv_fu1 + inv_fu2)
         w1p = w1 - Atop((sig2 / sig1) * w2)
-        dx = _newton_dx(edges, sigx, w1p, free, emask, n, cfg)
+        dx = _newton_dx(edges, sigx, w1p, free, emask, n, cfg, plan)
         Adx = Aop(dx)
 
         du = (w2 - sig2 * Adx) / sig1
@@ -212,12 +214,16 @@ def _l1decode_lanes(y, edges, free, emask, n, cfg: L1RAConfig):
     return x
 
 
-def l1ra_step(g: RotationGraph, cfg: L1RAConfig):
-    """One outer L1-RA iteration. Returns (new_Q, score tensor)."""
+def l1ra_step(g: RotationGraph, cfg: L1RAConfig, plan=None):
+    """One outer L1-RA iteration. Returns (new_Q, score tensor).
+    ``plan``: :func:`rmatvec_plan` of ``g.edges`` (built here when not
+    given; :func:`l1ra` builds it once for all its steps)."""
     free = g.free_mask()
     w3 = so3.log_map(so3.delta_rel(g.edges, g.QQ, g.Q))[..., :3]
     w3 = torch.where(g.edge_mask[..., None], w3, torch.zeros_like(w3))
-    X = _l1decode_lanes(w3, g.edges, free, g.edge_mask, g.n, cfg)
+    if plan is None:
+        plan = rmatvec_plan(g.edges, g.n)
+    X = _l1decode_lanes(w3, g.edges, free, g.edge_mask, g.n, cfg, plan)
     return so3.qmul(g.Q, so3.exp_map(X)), free_mean(X, free)
 
 
@@ -232,8 +238,9 @@ def l1ra(g: RotationGraph, cfg: L1RAConfig = L1RAConfig()):
     score = torch.full(batch, math.inf, dtype=g.dtype, device=dev)
     it = torch.zeros(batch, dtype=torch.int64, device=dev)
     active = (score >= cfg.change_th) & (it < cfg.max_iters)
+    plan = rmatvec_plan(g.edges, g.n)
     while bool(active.any()):
-        Q2, s2 = l1ra_step(dataclasses.replace(g, Q=Q), cfg)
+        Q2, s2 = l1ra_step(dataclasses.replace(g, Q=Q), cfg, plan)
         Q = torch.where(active[..., None, None], Q2, Q)
         score = torch.where(active, s2, score)
         it = it + active

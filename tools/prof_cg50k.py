@@ -7,8 +7,10 @@ f64 CG configuration) on one CUDA card.
 
 Prints the card, the host wall of the profiled iterations, the device
 time by operator (``key_averages``, inclusive of the kernels each
-launches), the shares of ``index_add_`` (the scatter-adds), the gathers
-(``index``), ``cholesky``/``cholesky_solve`` and the rest, the kernel
+launches), the shares of ``segment_sum`` (the scatter-adds, a kernel
+launched through ctypes, so its events carry the kernel's name and no
+operator), the gathers (``index``), ``cholesky``/``cholesky_solve`` and
+the rest, the kernel
 count, and the device's idle share of the wall (1 - the summed self
 device time of all operators over the wall; one stream, so kernels do not
 overlap).
@@ -24,7 +26,9 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-GROUPS = (("index_add_ (scatter-add)", ("aten::index_add_",)),
+# exact operator names; a name ending in "*" matches every event key that
+# contains the rest (a kernel's demangled template names)
+GROUPS = (("segment_sum (scatter-add)", ("segment_sum_kernel*",)),
           ("gathers (aten::index)", ("aten::index",)),
           ("cholesky / cholesky_solve",
            ("aten::linalg_cholesky_ex", "aten::cholesky_solve")))
@@ -74,10 +78,15 @@ def main(argv=None) -> int:
           f"solve: wall {wall_us / 1e3:.3f} ms, {n_kernels} kernel events, "
           f"device busy {busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / wall_us:.4f}")
-    by_name = {e.key: e for e in ops}
+    def matching(names):
+        return [e for e in ops if any(
+            n[:-1] in e.key if n.endswith("*") else e.key == n
+            for n in names)]
+
     for label, names in GROUPS:
-        us = sum(_dev_us(by_name[n], False) for n in names if n in by_name)
-        calls = sum(by_name[n].count for n in names if n in by_name)
+        hits = matching(names)
+        us = sum(_dev_us(e, False) for e in hits)
+        calls = sum(e.count for e in hits)
         print(f"[prof] {label}: {us / 1e3:.3f} ms device, {calls} calls, "
               f"share of device time {us / busy_us:.4f}, of wall "
               f"{us / wall_us:.4f}")
