@@ -8,17 +8,34 @@ prints no result line):
 
 0. device — requires ``torch.cuda.is_available()``; prints the card's
    name and power limit (``nvidia-smi``) and the torch / CUDA versions.
-1. build — compiles every CUDA kernel of the main path from
-   ``irotavg_tpu_torch/csrc`` (``match_best2``, ``segment_sum``), one nvcc
-   each, all started together, and prints the build seconds and ptxas's
-   ``-v`` report (registers, shared memory, spills).
+1. build — compiles every CUDA source of the main path from
+   ``irotavg_tpu_torch/csrc`` (``match_best2``, ``segment_sum``,
+   ``laplacian``), one nvcc each, all started together, and prints the
+   build seconds and ptxas's ``-v`` report (registers, shared memory,
+   spills).
 2. kernels — each kernel against its plain PyTorch version on the card,
-   required exactly equal.  ``segment_sum`` (the solver's fixed-order
-   scatter-adds) bit for bit against ``segment_sum_plain`` on the same
-   inputs moved to the CPU, at the solver's shapes (:func:`segment_cases`:
-   5b's graph in f64 and f32, the window server's batch, a main-path
-   window), timed beside its bound, the plain version on the card and one
-   atomic ``index_add_`` (``library_ms``).  ``match_best2``: at the main
+   required exactly equal.  ``segment_sum`` (the solver's remaining
+   fixed-order scatter-adds) bit for bit against ``segment_sum_plain`` on
+   the same inputs moved to the CPU, at the shapes it is given
+   (:func:`segment_cases`: ``A.T @ e`` and the Jacobi diagonal on 5b's
+   graph in f64 and f32 and on 5c's, the window server's batch, a
+   main-path window, SIFT's two histograms), timed beside its bound, the
+   plain version on the card and one atomic ``index_add_``
+   (``library_ms``).  The fused Laplacian kernels of ``csrc/laplacian.cu``
+   (``laplacian_matvec``, the CG matvec; ``laplacian_assemble``, the dense
+   Laplacian) bit for bit against their plain versions on the CPU and
+   against the unfused composition they replace on the card
+   (``tests/composed_laplacian.py``), at ``MATVEC_CASES`` and
+   ``ASSEMBLE_CASES`` (5b's graph in f64 and f32, 5c's 4541-view graph
+   with one coefficient column and L1-RA's three, the window server's
+   batch, a 13-view main-path window with three L1-RA lanes, and five
+   columns of ``x`` on 5c's graph: two launches a call), timed beside
+   their bounds, the plain version, the composition and the library
+   yardstick (``torch.sparse.mm`` of the CSR Laplacian, block-diagonal
+   over per-column coefficients; ``to_dense`` of the COO tensor of the
+   dense terms and the diagonal); and the assembly of a 30,000-view
+   chain, whose rows exceed a block's shared memory and go in chunks,
+   against its plain version on the card.  ``match_best2``: at the main
    path's shapes under every gate,
    and on adversarial cases (exact duplicate columns on both sides of
    every column-split and tile boundary, rows with no and with one
@@ -39,7 +56,9 @@ prints no result line):
    pins every 20 frames, launch counters reset just before, and checks
    the kernel counts, the output files and the rotation RMSE against GT,
    and that keyframes, launches by gate and RMSE are those of per-frame
-   extraction (``PER_FRAME_PHASE3``).  Then the prefetch check: the first
+   extraction (``PER_FRAME_PHASE3``), and that every plan the window
+   solves use was built once per ``irls`` / ``l1ra`` call, none inside an
+   iteration (:func:`counting_plans`).  Then the prefetch check: the first
    16 frames through ``FramePrefetcher(batch=8)`` against ``Frame`` built
    one at a time, without and with the vocabulary (desc, valid, octave,
    x, y, angle, BoW and node ids equal), and the extraction ms per frame
@@ -63,7 +82,9 @@ prints no result line):
    ``tests/ref_impl.py``; (b) bench.py:379-401's 50k-view problem with
    the reference's f64 CG configuration, twice: converged, finite, mean
    error vs GT within 0.01 deg of the JAX package's f64 value, CG
-   iterations, seconds, and the two runs bit-identical;
+   iterations, seconds, and the two runs bit-identical, then a third
+   run on the unfused composition (``tests/composed_laplacian.py``)
+   bit-identical to them;
    (c) a KITTI-length (4541-view) graph through ``IncrementalRotAvg``'s
    ``rot_avg(5_000_000)``: the CG window (bucket 8192 > 2048) against the
    same graph solved dense, max geodesic < 1e-6 deg; (d) bench.py's 384
@@ -105,9 +126,12 @@ prints no result line):
    within 0.5 deg of the CPU's calls (median over the seeds).
    ``hamming_matrix`` at 2000x2000 equal to the CPU's, its row minima
    the kernel's ``d1`` under ``none``.  ``SIFTExtractor`` (2000
-   features, 4 octaves) on the card against the CPU: >= 99% of the CPU's
+   features, 4 octaves) on the card twice, bit-identical (its histograms
+   are ``segment_sum``s), and against the CPU: every one of the CPU's
    keypoints at the same (octave, x0, y0), descriptors within 1e-3 on >=
-   98% of them, ``match_sift`` equal on >= 99% of rows; extraction ms.
+   98% of them (the share bit-identical reported), ``match_sift`` equal
+   on >= 99% of rows; extraction ms, in turns against the route before
+   the fixed-order sums (one atomic ``scatter_add`` a histogram).
    Then the CLI with ``--plot_matches`` on the first 20 frames, and with
    it and ``--trace_dir`` on the first 3 (a trace grows by tens of MB a
    frame):
@@ -115,9 +139,10 @@ prints no result line):
    pair, phase 3's first keyframes, and a ``torch.profiler`` trace naming
    ``match_best2_kernel`` among its CUDA kernel events.
 
-Every path that runs the solver (phases 3-8 and phase 10's CLI runs)
-counts ``segment_sum``'s launches from 0 and fails if it launched the
-kernel no time.
+Every path that runs the solver (phases 3-8 and phase 10's CLI runs and
+SIFT) counts the launches of ``segment_sum``, ``laplacian_matvec`` and
+``laplacian_assemble`` from 0 and fails if it launched a kernel of its
+backend no time (``DENSE_PATH``, ``CG_PATH``).
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -209,8 +234,11 @@ OFFLINE_RMSE_FACTOR = 1.5
 # JAX's f32 orientation sums also make (0, 122) and (1, 122) candidates
 PORT_OFFLINE_LOOP_CANDIDATES = 135
 # phase 10: SIFT agreement card vs CPU, the two-view tolerance, the CLI
-# run's frames and the kernel's symbol in the trace
-SIFT_KEYPOINT_SHARE = 0.99
+# run's frames and the kernel's symbol in the trace.  Every keypoint of
+# the CPU's is found by the card (NVIDIA H100 80GB HBM3): the detection
+# compares sums that both devices add in one order; the descriptors'
+# f32 exp / atan2 / sqrt round differently on the two devices
+SIFT_KEYPOINT_SHARE = 1.0
 SIFT_DESC_TOL = 1e-3
 SIFT_DESC_SHARE = 0.98
 SIFT_MATCH_SHARE = 0.99
@@ -225,32 +253,86 @@ SURFACE_TRACE_FRAMES = 3
 KERNEL_SYMBOL = "match_best2_kernel"
 
 
-# the hand-written kernels of the port (irotavg_tpu_torch/csrc/<name>.cu)
-KERNELS = ("match_best2", "segment_sum")
-# segment_sum launches per driven path, each counted from 0 just before
-# the path runs (read at the end for the kernel report)
-SEGMENT_LAUNCHES: dict[str, int] = {}
+# the sources of the port's hand-written kernels
+# (irotavg_tpu_torch/csrc/<name>.cu), one nvcc each
+KERNELS = ("match_best2", "segment_sum", "laplacian")
+# the solver's kernels: segment_sum (ops/segment.py) and the fused
+# Laplacian matvec and assembly (ops/laplacian.py, csrc/laplacian.cu)
+SOLVER_KERNELS = ("segment_sum", "laplacian_matvec", "laplacian_assemble")
+# what a path that runs the dense solver launches, and the CG solver
+DENSE_PATH = ("segment_sum", "laplacian_assemble")
+CG_PATH = ("segment_sum", "laplacian_matvec")
+# launches of each solver kernel per driven path, each counted from 0 just
+# before the path runs (read at the end for the kernel report)
+SOLVER_LAUNCHES: dict[str, dict[str, int]] = {}
 
 
 class SmokeError(RuntimeError):
     pass
 
 
+def _solver_wrappers():
+    from irotavg_tpu_torch.ops import laplacian, segment
+
+    return {"segment_sum": segment.segment_sum,
+            "laplacian_matvec": laplacian.laplacian_matvec,
+            "laplacian_assemble": laplacian.laplacian_assemble}
+
+
 @contextlib.contextmanager
-def counting_segments(path):
-    """Sets ``segment_sum``'s launch count to 0 just before the block and
-    records it under ``path`` just after; fails if the block (a path that
-    runs the solver) launched the kernel no time."""
-    from irotavg_tpu_torch.ops import segment
+def counting_solver(path, need=DENSE_PATH):
+    """Sets the solver kernels' launch counts to 0 just before the block
+    and records them under ``path`` just after; fails if the block (a
+    path that runs the solver) launched a kernel of ``need`` no time."""
+    from irotavg_tpu_torch.ops import laplacian, segment
 
     segment.reset_launch_counts()
+    laplacian.reset_launch_counts()
     yield
-    n = SEGMENT_LAUNCHES[path] = segment.segment_sum.launches
-    if n <= 0:
-        raise SmokeError(f"{path} never launched segment_sum")
+    counts = SOLVER_LAUNCHES[path] = {
+        name: fn.launches for name, fn in _solver_wrappers().items()}
+    missing = [name for name in need if counts[name] <= 0]
+    if missing:
+        raise SmokeError(f"{path} never launched {', '.join(missing)}")
 
 
-def _card(torch) -> str:
+@contextlib.contextmanager
+def counting_plans(stats):
+    """Counts, inside the block, the plans built of each kind and the
+    engine's solver calls (``irls`` and ``l1ra``) with their iterations,
+    into ``stats``."""
+    from irotavg_tpu_torch.engine import incremental
+    from irotavg_tpu_torch.ops import laplacian, segment
+
+    builders = {"segment_plan": segment.segment_plan,
+                "matvec_plan": laplacian.matvec_plan,
+                "dense_plan": laplacian.dense_plan}
+    for fn in builders.values():
+        fn.builds = 0
+    calls = {"irls": [0, 0], "l1ra": [0, 0]}
+    saved = {name: getattr(incremental, name) for name in calls}
+
+    def counting(name, fn):
+        def solve(*a, **kw):
+            out = fn(*a, **kw)
+            calls[name][0] += 1
+            calls[name][1] += int(out[-2])       # the iteration count
+            return out
+        return solve
+
+    for name, fn in saved.items():
+        setattr(incremental, name, counting(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(incremental, name, fn)
+        stats.update({k: fn.builds for k, fn in builders.items()})
+        stats["calls"] = sum(c for c, _ in calls.values())
+        stats["iterations"] = sum(i for _, i in calls.values())
+
+
+def card_name(torch) -> str:
     r = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -283,7 +365,7 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: this smoke "
                          "run needs a CUDA card")
-    card = _card(torch)
+    card = card_name(torch)
     print(card)                  # name, power limit exactly as nvidia-smi
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}; CUDA {torch.version.cuda}; python "
@@ -645,15 +727,15 @@ MAIN_WINDOW_VIEWS = 13
 
 def segment_cases(dev):
     """``segment_sum``'s inputs at the shapes the solver gives it, as
-    ``(name, values, plan)`` on ``dev``: 5b's 50k-view graph (the CG
-    matvec's ``A.T @ e`` over 3 columns, in f64 and in the scaling probe's
-    f32, and the Jacobi diagonal), the window server's 384 windows
-    (m_pad 64, n_pad 16, flattened), and a main-path window's dense
-    Laplacian (the 3 L1-RA lanes as one column) and ``A.T @ e``.  Values
-    are random normals from a seeded generator."""
+    ``(name, values, plan)`` on ``dev``: ``A.T @ e`` over 3 columns (the
+    IRLS right-hand side and L1-RA's ``Atop``) and the Jacobi diagonal on
+    5b's 50k-view graph (``A.T @ e`` also in the scaling probe's f32) and
+    on 5c's 4541-view graph, ``A.T @ e`` on the window server's 384
+    windows (m_pad 64, n_pad 16, flattened) and on a main-path window, and
+    SIFT's two histograms.  Values are random normals from a seeded
+    generator."""
     import torch
 
-    from irotavg_tpu_torch.engine.batched import pack_windows
     from irotavg_tpu_torch.ops.segment import segment_plan
     from irotavg_tpu_torch.solver import graph
 
@@ -666,25 +748,27 @@ def segment_cases(dev):
                         device=dev)
         cases.append((name, v, plan))
 
-    _, g, _ = large_problem(dev)
-    rplan = graph.rmatvec_plan(g.edges, g.n)
+    graphs = solver_graphs(dev)
+    e5b, n5b = graphs["5b"][0], graphs["5b"][3]
+    rplan = graph.rmatvec_plan(e5b, n5b)
     add("5b_rmatvec_f64", rplan, 3)
     add("5b_rmatvec_f32", rplan, 3, torch.float32)
-    e = g.edges
-    add("5b_diag_f64", segment_plan(torch.cat([e[:, 0], e[:, 1]]), g.n), 1)
-    edges = pack_windows(bench_windows(N_WINDOWS), 64, 16)[0]
-    add("windows_rmatvec_f64", graph.rmatvec_plan(
-        torch.as_tensor(edges, device=dev).long(), 16), 3)
-    _, we, _, _ = kitti_chain(MAIN_WINDOW_VIEWS)
-    we = torch.as_tensor(we, device=dev).long()
-    n = MAIN_WINDOW_VIEWS
-    free = torch.arange(n, device=dev) >= 1
-    emask = torch.ones(len(we), dtype=torch.bool, device=dev)
-    ids, _, fr = graph.dense_terms(
-        we[None], torch.ones((3, len(we)), dtype=torch.float64, device=dev),
-        free[None], emask[None], n)
-    add("window_dense_lanes_f64", segment_plan(ids, fr.numel() * n), 1)
-    add("window_rmatvec_f64", graph.rmatvec_plan(we, n), 3)
+    add("5b_diag_f64", graph.diag_plan(e5b, n5b), 1)
+    e5c, n5c = graphs["5c"][0], graphs["5c"][3]
+    add("5c_rmatvec_f64", graph.rmatvec_plan(e5c, n5c), 3)
+    add("5c_diag_f64", graph.diag_plan(e5c, n5c), 1)
+    add("windows_rmatvec_f64", graph.rmatvec_plan(graphs["windows"][0], 16),
+        3)
+    we, nw = graphs["window"][0], graphs["window"][3]
+    add("window_rmatvec_f64", graph.rmatvec_plan(we, nw), 3)
+    # SIFT's histograms (frontend/sift.py:_bin_sums): 2000 keypoints,
+    # 289 samples into 36 orientation bins and 256 into 128 descriptor bins
+    for name, samples, bins in (("sift_orientation_f32", 289, 36),
+                                ("sift_descriptor_f32", 256, 128)):
+        ids = torch.randint(0, bins, (2000, samples), generator=gen,
+                            device=dev)
+        ids += torch.arange(2000, device=dev)[:, None] * bins
+        add(name, segment_plan(ids, 2000 * bins), 1, torch.float32)
     return cases
 
 
@@ -696,9 +780,11 @@ def phase_segment_kernel(card):
     called by the port), beside the bound."""
     import torch
 
+    from composed_laplacian import bits_equal
+
     from irotavg_tpu_torch.ops import segment
 
-    dev = torch.device("cuda", torch.cuda.current_device())
+    dev = _device(torch)
     timed = {}
     for name, v, plan in segment_cases(dev):
         got = segment.segment_sum(v, plan)
@@ -706,7 +792,7 @@ def phase_segment_kernel(card):
                                        plan.rows)
         ref = segment.segment_sum_plain(v.cpu(), cpu_plan)
         torch.cuda.synchronize()
-        if not _bits_equal(got.cpu(), ref):
+        if not bits_equal(got.cpu(), ref):
             d = float((got.cpu().double() - ref.double()).abs().max())
             raise SmokeError(f"segment_sum != plain on {name}: max |d| {d}")
         launch, _ = segment.segment_sum_launcher(v, plan)
@@ -739,6 +825,298 @@ def phase_segment_kernel(card):
                         "in incidence_rmatvec; also :158-159, :180-184; "
                         "no Pallas kernel)",
             "max_abs_err": 0.0, **timed["5b_rmatvec_f64"], "cases": timed}
+
+
+# -- phase 2, the fused Laplacian kernels and the composition they replace ----
+
+
+_GRAPHS: dict = {}
+
+
+def solver_graphs(dev):
+    """The graphs the solver's kernels see, as ``name -> (edges, free
+    mask, edge mask, n)`` on ``dev``: 5b's 50k-view problem, 5c's
+    4541-view KITTI-length graph (view 0 fixed), bench.py's 384 windows as
+    the window server packs them (m_pad 64, n_pad 16), and a
+    ``MAIN_WINDOW_VIEWS``-view main-path window (view 0 fixed)."""
+    import torch
+
+    from irotavg_tpu_torch.engine.batched import pack_windows
+
+    if dev in _GRAPHS:
+        return _GRAPHS[dev]
+
+    def chain(n):
+        edges = torch.as_tensor(kitti_chain(n)[1], device=dev).long()
+        free = torch.arange(n, device=dev) >= 1
+        return (edges, free, torch.ones(len(edges), dtype=torch.bool,
+                                        device=dev), n)
+
+    _, g, _ = large_problem(dev)
+    edges, _, _, f, emask, nmask = (torch.as_tensor(a, device=dev) for a in
+                                    pack_windows(bench_windows(N_WINDOWS),
+                                                 64, 16))
+    wfree = (torch.arange(16, device=dev) >= f[:, None].long()) & nmask
+    out = _GRAPHS[dev] = {
+        "5b": (g.edges, g.free_mask(), g.edge_mask, g.n),
+        "5c": chain(KITTI_VIEWS),
+        "windows": (edges.long(), wfree, emask, 16),
+        "window": chain(MAIN_WINDOW_VIEWS)}
+    return out
+
+
+# the fused matvec at the solver's shapes: (name, graph, columns of x,
+# columns of c, dtype): 5b's IRLS CG in f64 and the scaling probe's f32,
+# 5c's IRLS CG and its L1-RA CG (a coefficient column per lane), the
+# window server's batch and a main-path window's three L1-RA lanes; and
+# five columns on 5c's graph, shared and per-column coefficients (two
+# launches a call: four columns, then one)
+MATVEC_CASES = (("5b_f64", "5b", 3, 1, "float64"),
+                ("5b_f32", "5b", 3, 1, "float32"),
+                ("5c_f64", "5c", 3, 1, "float64"),
+                ("5c_l1_lanes_f64", "5c", 3, 3, "float64"),
+                ("windows_f64", "windows", 3, 1, "float64"),
+                ("window_l1_lanes_f64", "window", 3, 3, "float64"),
+                ("5c_5cols_f64", "5c", 5, 1, "float64"),
+                ("5c_5lanes_f64", "5c", 5, 5, "float64"))
+# the dense assembly: (name, graph, L1-RA lanes or None, ridge): 5c's
+# graph solved dense (IRLS, and L1-RA's three lanes), the window server's
+# batch and a main-path window, each for IRLS and for L1-RA
+ASSEMBLE_CASES = (("5c_f64", "5c", None, 0.0),
+                  ("5c_l1_lanes_f64", "5c", 3, 0.0),
+                  ("windows_f64", "windows", None, 0.0),
+                  ("windows_l1_lanes_f64", "windows", 3, 0.0),
+                  ("window_f64", "window", None, 1e-6),
+                  ("window_l1_lanes_f64", "window", 3, 0.0))
+# views of the chain whose dense rows exceed a block's shared memory
+LONG_ROW_VIEWS = 30_000
+
+
+def _coefficients(torch, shape, lanes, emask, gen, dtype, dev):
+    """Random IRLS weights (positive) or L1-RA ``sigx`` (either sign),
+    with NaN in the masked edges' slots, which no kernel may read."""
+    v = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+    if not lanes:
+        v = v.abs() + 0.1
+    return torch.where(emask, v, torch.full_like(v, float("nan")))
+
+
+def _laplacian_csr(torch, plan, c):
+    """The Laplacian ``A' diag(c) A`` over the plan's rows as one CSR
+    matrix, block-diagonal over ``c``'s coefficient columns (one block a
+    column), for the library yardstick; built outside any timing."""
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(plan.rows, device=counts.device), counts)
+    rec = plan.records.long()
+    edge, other = rec[:, 0], rec[:, 1]
+    keep = other >= 0
+    cf = c.reshape(-1, c.shape[-1])
+    idx, val = [], []
+    for q in range(cf.shape[1]):
+        w = cf[torch.where(edge >= 0, edge, ~edge), q]
+        base = q * plan.rows
+        idx += [torch.stack([rows, rows]) + base,
+                torch.stack([rows[keep], other[keep]]) + base]
+        val += [w, -w[keep]]
+    size = cf.shape[1] * plan.rows
+    return torch.sparse_coo_tensor(torch.cat(idx, 1), torch.cat(val),
+                                   (size, size)).coalesce().to_sparse_csr()
+
+
+def _dense_coo(torch, plan, coef, ridge):
+    """The assembly's output ``(rows, n)`` as an uncoalesced COO tensor of
+    the records' ``±coef`` and the diagonal terms (``ridge`` on free rows,
+    1 on fixed), for the library yardstick (``to_dense`` sums the
+    duplicates); built outside any timing."""
+    counts = (plan.offsets[1:] - plan.offsets[:-1]).long()
+    r = torch.arange(plan.rows, device=counts.device)
+    rows = torch.repeat_interleave(r, counts)
+    rec = plan.records.long()
+    col, edge = rec[:, 0], rec[:, 1]
+    v = coef.reshape(-1)[torch.where(edge >= 0, edge, ~edge)]
+    v = torch.where(edge >= 0, v, -v)
+    ones = torch.ones(plan.rows, dtype=coef.dtype, device=coef.device)
+    dg = torch.where(plan.free, ones * ridge, ones)
+    idx = torch.cat([torch.stack([rows, col]), torch.stack([r, r % plan.n])],
+                    1)
+    return torch.sparse_coo_tensor(idx, torch.cat([v, dg]),
+                                   (plan.rows, plan.n))
+
+
+def _yardstick_error(torch, lib, got, what):
+    """Max |lib - got| of a library yardstick against the kernel's output;
+    fails beyond 1e-9 of the output's largest magnitude (the yardstick
+    adds in another order, so it need not be bit-equal)."""
+    torch.cuda.synchronize()
+    d = float((lib.double() - got.double()).abs().max()) if got.numel() \
+        else 0.0
+    scale = float(got.double().abs().max()) if got.numel() else 0.0
+    tol = 1e-9 if got.dtype == torch.float64 else 1e-4
+    if not d <= tol * max(scale, 1.0):
+        raise SmokeError(f"library yardstick of the {what} computes another "
+                         f"function: max |d| {d}")
+    return d
+
+
+def phase_laplacian_kernels(card):
+    """``laplacian_matvec`` and ``laplacian_assemble`` on the card against
+    their plain versions on the same inputs moved to the CPU and against
+    the unfused composition on the card, bit for bit, at
+    ``MATVEC_CASES`` and ``ASSEMBLE_CASES``; times of the kernel, the
+    plain version and the composition on the card and the library
+    yardstick (never called by the port, held to the kernel's output to
+    1e-9): ``torch.sparse.mm`` of the CSR Laplacian for the matvec
+    (block-diagonal over per-column coefficients), ``to_dense`` of the
+    COO tensor of the terms and the diagonal for the assembly."""
+    import torch
+
+    from composed_laplacian import bits_equal, composed_dense, composed_matvec
+
+    from irotavg_tpu_torch.ops import laplacian as lap
+    from irotavg_tpu_torch.solver import graph
+
+    dev = _device(torch)
+    graphs = solver_graphs(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    report = {"laplacian_matvec": {}, "laplacian_assemble": {}}
+
+    def check(name, what, got, ref, comp):
+        torch.cuda.synchronize()
+        for other, label in ((ref, "its plain version"),
+                             (comp, "the unfused composition")):
+            if not bits_equal(got.cpu(), other.cpu()):
+                d = float((got.cpu().double() - other.cpu().double())
+                          .abs().max())
+                raise SmokeError(f"{what} {name} != {label}: max |d| {d}")
+
+    def line(what, name, shape, k_ms, b_ms, b_by, p_ms, c_ms, lib_ms, extra):
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[kernel] {what} {name}: {shape}: bit-identical to the plain "
+              f"version and the composition; kernel {k_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), share of bound {b_ms / k_ms:.4f}; "
+              f"plain {p_ms:.4f} ms; composition {c_ms:.4f} ms; library "
+              f"{lib}{extra}  ({card})")
+        report[what][name] = {"ms": k_ms, "plain_ms": p_ms,
+                              "composed_ms": c_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "bound_share": b_ms / k_ms,
+                              "library_ms": lib_ms}
+
+    for name, gname, k, ck, dtype in MATVEC_CASES:
+        dtype = getattr(torch, dtype)
+        edges, free, emask, n = graphs[gname]
+        batch, m = tuple(edges.shape[:-2]), edges.shape[-2]
+        plan = lap.matvec_plan(edges, free, emask, n, batch)
+        x = torch.randn(batch + (n, k), generator=gen, dtype=dtype,
+                        device=dev)
+        c = _coefficients(torch, batch + (m, ck), ck > 1, emask[..., None],
+                          gen, dtype, dev)
+        rplan = graph.rmatvec_plan(edges, n)
+        cpu_plan = plan._replace(records=plan.records.cpu(),
+                                 offsets=plan.offsets.cpu())
+        got = lap.laplacian_matvec(x, c, plan)
+        check(name, "laplacian_matvec", got,
+              lap.laplacian_matvec_plain(x.cpu(), c.cpu(), cpu_plan),
+              composed_matvec(edges, c, x, free, emask, n, rplan))
+        launch, _ = lap.laplacian_matvec_launcher(x, c, plan)
+        lap.reset_launch_counts()
+        launch()
+        launches = lap.laplacian_matvec.launches
+        k_ms = _time_ms(torch, launch)
+        p_ms = _time_ms(torch, lambda: lap.laplacian_matvec_plain(x, c, plan),
+                        per_window=10, windows=5)
+        c_ms = _time_ms(torch, lambda: composed_matvec(
+            edges, c, x, free, emask, n, rplan), per_window=10, windows=5)
+        # the library yardstick: cuSPARSE's SpMM of the CSR Laplacian,
+        # block-diagonal over per-column coefficients (x column-major)
+        L = _laplacian_csr(torch, plan, c)
+        xl = x.reshape(-1, k) if ck == 1 else \
+            x.reshape(-1, k).T.contiguous().reshape(-1, 1)
+        lib_ms = _time_ms(torch, lambda: torch.sparse.mm(L, xl))
+        lib_d = _yardstick_error(torch, torch.sparse.mm(L, xl) if ck == 1
+                                 else torch.sparse.mm(L, xl).view(k, -1).T,
+                                 got.reshape(-1, k), f"matvec {name}")
+        b_ms, b_by = lap.matvec_bound_ms(plan, k, ck, dtype)
+        line("laplacian_matvec", name,
+             f"x {tuple(x.shape)}, c {tuple(c.shape)}, "
+             f"{plan.records.shape[0]} terms, {launches} launch(es) a call",
+             k_ms, b_ms, b_by, p_ms, c_ms, lib_ms,
+             f" (max |d| {lib_d:.2e} from the kernel)")
+    for name, gname, lanes, ridge in ASSEMBLE_CASES:
+        edges, free, emask, n = graphs[gname]
+        batch, m = tuple(edges.shape[:-2]), edges.shape[-2]
+        if lanes:
+            edges, free, emask = (edges[..., None, :, :], free[..., None, :],
+                                  emask[..., None, :])
+            batch += (lanes,)
+        plan = lap.dense_plan(edges, free, emask, n, batch)
+        coef = _coefficients(torch, batch + (m,), lanes, emask, gen,
+                             torch.float64, dev)
+        cpu_plan = plan._replace(records=plan.records.cpu(),
+                                 offsets=plan.offsets.cpu(),
+                                 free=plan.free.cpu())
+        check(name, "laplacian_assemble",
+              lap.laplacian_assemble(coef, plan, ridge),
+              lap.laplacian_assemble_plain(coef.cpu(), cpu_plan, ridge),
+              composed_dense(edges, coef, free, emask, n, ridge))
+        launch, out = lap.laplacian_assemble_launcher(coef, plan, ridge)
+        k_ms = _time_ms(torch, launch)
+        p_ms = _time_ms(torch, lambda: lap.laplacian_assemble_plain(
+            coef, plan, ridge), per_window=10, windows=5)
+        c_ms = _time_ms(torch, lambda: composed_dense(
+            edges, coef, free, emask, n, ridge), per_window=10, windows=5)
+        # the library yardstick: the COO tensor of the records' terms and
+        # the diagonal made dense
+        coo = _dense_coo(torch, plan, coef, ridge)
+        lib_ms = _time_ms(torch, coo.to_dense, per_window=10, windows=5)
+        lib_d = _yardstick_error(torch, coo.to_dense(), out.view(plan.rows,
+                                                                 n),
+                                 f"assembly {name}")
+        b_ms, b_by = lap.assemble_bound_ms(plan, coef.dtype)
+        del out, coo
+        line("laplacian_assemble", name,
+             f"coef {tuple(coef.shape)} -> {batch + (n, n)}, "
+             f"{plan.records.shape[0]} terms", k_ms, b_ms, b_by, p_ms, c_ms,
+             lib_ms, f" (max |d| {lib_d:.2e} from the kernel)")
+    # a dense row longer than shared memory holds (n > 29,056 in f64)
+    # goes in chunks of columns: a 30,000-view chain, whose entries have at
+    # most two terms each, so the plain version on the card (an atomic
+    # index_add_) gives the same bits in any order
+    n = LONG_ROW_VIEWS
+    nodes = torch.arange(n, device=dev)
+    edges = torch.stack([nodes[:-1], nodes[1:]], 1)
+    emask = torch.ones(n - 1, dtype=torch.bool, device=dev)
+    plan = lap.dense_plan(edges, nodes >= 1, emask, n)
+    coef = _coefficients(torch, (n - 1,), None, emask, gen, torch.float64,
+                         dev)
+    launch, out = lap.laplacian_assemble_launcher(coef, plan, 1e-6)
+    launch()
+    same = bits_equal(out, lap.laplacian_assemble_plain(coef, plan, 1e-6))
+    k_ms = _time_ms(torch, launch, per_window=5, windows=3)
+    b_ms, b_by = lap.assemble_bound_ms(plan, coef.dtype)
+    del out
+    print(f"[kernel] laplacian_assemble {n}-view chain (rows in chunks of "
+          f"columns): bit-identical to the plain version on the card: "
+          f"{same}; kernel {k_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})  "
+          f"({card})")
+    if not same:
+        raise SmokeError(f"laplacian_assemble differs from its plain version "
+                         f"on the {n}-view chain")
+    for what, cases in report.items():
+        print(f"[kernel] {what} bit-identical to its plain version and the "
+              f"unfused composition in {len(cases)} cases  ({card})")
+    mv, asm = report["laplacian_matvec"], report["laplacian_assemble"]
+    src = "irotavg_tpu_torch/csrc/laplacian.cu"
+    return [{"name": "laplacian_matvec", "route": "cuda", "source": src,
+             "replaces": "irotavg_tpu/solver/graph.py:119-134 (XLA gathers "
+                         "and .at[].add of incidence_matvec / "
+                         "incidence_rmatvec; no Pallas kernel)",
+             "max_abs_err": 0.0, **mv["5b_f64"], "cases": mv},
+            {"name": "laplacian_assemble", "route": "cuda", "source": src,
+             "replaces": "irotavg_tpu/solver/graph.py:167-186 (XLA .at[].add "
+                         "of laplacian_dense; no Pallas kernel)",
+             "max_abs_err": 0.0, **asm["window_l1_lanes_f64"], "cases": asm}]
 
 
 # -- phase 3: the synthetic KITTI-sized sequence and the CLI ------------------
@@ -922,7 +1300,8 @@ def rotation_rmse_deg(poses_path, ids_path, R_gt):
 def _run_logged(main_fn, argv, out, name):
     """``main_fn(argv)`` in-process, stdout to ``out/name.log``, with the
     matcher's launch counters set to 0 just before and read just after,
-    and ``segment_sum``'s counted under ``name``.  Returns (log, wall seconds, launches, launches by gate);
+    and the solver kernels' counted under ``name``.  Returns (log, wall
+    seconds, launches, launches by gate);
     raises when it returns non-zero."""
     import contextlib
 
@@ -932,8 +1311,7 @@ def _run_logged(main_fn, argv, out, name):
     with open(log_path, "w", buffering=1) as fh:           # line-buffered
         match.reset_launch_counts()
         t0 = time.perf_counter()
-        with counting_segments(name), \
-                contextlib.redirect_stdout(fh):
+        with counting_solver(name), contextlib.redirect_stdout(fh):
             rc = main_fn(argv)
         wall = time.perf_counter() - t0
         launches = match.best2.launches
@@ -991,13 +1369,24 @@ def phase_main_path(card, out):
           f"{KITTI_W}x{KITTI_H} in {time.perf_counter() - t0:.1f} s "
           f"(host numpy)")
     res = os.path.join(out, "out")
-    log, wall, launches, by_gate, vg = run_cli(
-        ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
-         "--out_dir", res, "--max_frames", str(MAIN_FRAMES),
-         "--device", "cuda"],
-        out, "irotavg")
+    plans = {}
+    with counting_plans(plans):
+        log, wall, launches, by_gate, vg = run_cli(
+            ["none", yaml, seq, "--image_ext", ".pgm", "--gt", gt,
+             "--out_dir", res, "--max_frames", str(MAIN_FRAMES),
+             "--device", "cuda"],
+            out, "irotavg")
     if launches <= 0:
         raise SmokeError("the main path never launched match_best2")
+    print(f"[main] window solves: {plans['calls']} irls / l1ra calls, "
+          f"{plans['iterations']} iterations; plans built: segment "
+          f"{plans['segment_plan']}, dense {plans['dense_plan']}, matvec "
+          f"{plans['matvec_plan']}; solver launches "
+          f"{SOLVER_LAUNCHES['irotavg']}  ({card})")
+    if not (plans["segment_plan"] == plans["dense_plan"] == plans["calls"]
+            and plans["matvec_plan"] == 0):
+        raise SmokeError(f"phase 3 built plans inside solver iterations: "
+                         f"{plans}")
     rmse, n_key = rotation_rmse_deg(os.path.join(res, "rotavg_poses.txt"),
                                     os.path.join(res, "rotavg_poses_ids.txt"),
                                     R_gt)
@@ -1358,17 +1747,6 @@ def kitti_chain(n, seed=5):
     return R.as_quat(), edges, QQ, Q0
 
 
-def _bits_equal(a, b):
-    """Two f64 or f32 tensors equal bit for bit (``-0.0`` is not
-    ``0.0``)."""
-    import torch
-
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    ints = {8: torch.int64, 4: torch.int32}[a.element_size()]
-    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
-
-
 def geo_deg(Qa, Qb):
     """Per-row rotation angle (deg) between two quaternion sets,
     sign-invariant and accurate for tiny angles."""
@@ -1393,7 +1771,7 @@ def _sync_s(torch, fn):
     return r, time.perf_counter() - t0
 
 
-class _CountCG:
+class CountCG:
     """Collects the iteration counts of every CG solve made inside the
     ``with`` block (device tensors, summed at the end): by default the
     ``laplacian_cg_solve`` calls of the IRLS and L1-RA modules; with
@@ -1446,7 +1824,7 @@ def phase_golden(card, out):
     sol = os.path.join(out, "l1_irls_out.txt")
     log_path = os.path.join(out, "l1_irls.log")
     with open(log_path, "w") as fh, contextlib.redirect_stdout(fh), \
-            counting_segments("phase5a_l1_irls"):
+            counting_solver("phase5a_l1_irls"):
         t0 = time.perf_counter()
         rc = l1_irls.main([GOLDEN, sol, "--device", "cuda"])
         wall = time.perf_counter() - t0
@@ -1530,8 +1908,13 @@ def large_problem(dev):
 
 
 def phase_large(card):
-    """(b) bench.py:379-401's 50k-view quasi-global solve, f64 CG, twice."""
+    """(b) bench.py:379-401's 50k-view quasi-global solve, f64 CG, twice
+    on the fused kernels, then once on the unfused composition they
+    replace (``composed_laplacian.composed_route``); all three
+    bit-identical."""
     import torch
+
+    from composed_laplacian import bits_equal, composed_route
 
     from irotavg_tpu_torch import so3
     from irotavg_tpu_torch.solver.irls import irls
@@ -1541,14 +1924,21 @@ def phase_large(card):
     print(f"[solver] 50k problem: {LARGE_N} views, {g.m} edges, built in "
           f"{time.perf_counter() - t0:.1f} s (host numpy)")
     runs = []
-    for r in (1, 2):
-        with _CountCG() as cg, counting_segments(f"phase5b_run{r}"):
+    for r in (1, 2, "composed"):
+        route = composed_route() if r == "composed" else \
+            contextlib.nullcontext()
+        need = ("segment_sum",) if r == "composed" else CG_PATH
+        with route, CountCG() as cg, counting_solver(f"phase5b_run{r}",
+                                                      need):
             (Q, w, iters, score), secs = _sync_s(
                 torch, lambda: irls(g, cfg))
         runs.append((Q, iters, secs, cg.total(), w))
     Q, iters, _, cg_total, _ = runs[1]
-    identical = bool(_bits_equal(runs[0][0], runs[1][0])
-                     and _bits_equal(runs[0][4], runs[1][4]))
+    identical = bool(bits_equal(runs[0][0], runs[1][0])
+                     and bits_equal(runs[0][4], runs[1][4]))
+    composed = bool(bits_equal(runs[0][0], runs[2][0])
+                    and bits_equal(runs[0][4], runs[2][4])
+                    and runs[2][1] == iters and runs[2][3] == cg_total)
     Qn = so3.qnormalize(Q).cpu().numpy()
     err = float(np.degrees(2 * np.arccos(np.clip(
         np.abs(np.sum(Qn * p["Q_gt"], axis=-1)), -1, 1))).mean())
@@ -1557,12 +1947,20 @@ def phase_large(card):
           f"{runs[1][2]:.3f} s (run 1 / run 2), final score {score:.3e}; "
           f"mean error vs GT {err:.10f} deg (JAX f64 "
           f"{LARGE_JAX_F64_MEAN_ERR_DEG:.10f}); second run bit-identical "
-          f"(rotations and weights): {identical}; segment_sum launches "
-          f"{SEGMENT_LAUNCHES['phase5b_run1']} / "
-          f"{SEGMENT_LAUNCHES['phase5b_run2']}  ({card})")
+          f"(rotations and weights): {identical}; solver launches "
+          f"{SOLVER_LAUNCHES['phase5b_run1']} / "
+          f"{SOLVER_LAUNCHES['phase5b_run2']}  ({card})")
+    print(f"[solver] 50k f64 CG on the unfused composition: IRLS "
+          f"iterations {runs[2][1]}, CG iterations {runs[2][3]}, solve "
+          f"{runs[2][2]:.3f} s, launches "
+          f"{SOLVER_LAUNCHES['phase5b_runcomposed']}; bit-identical to the "
+          f"fused kernels' solve: {composed}  ({card})")
     if not identical or runs[0][1] != iters or runs[0][3] != cg_total:
         raise SmokeError("50k solve: two runs in the default mode are not "
                          "bit-identical")
+    if not composed:
+        raise SmokeError("50k solve: the fused kernels' solve differs from "
+                         "the unfused composition's")
     if not (iters < cfg.max_iters and np.isfinite(Qn).all()):
         raise SmokeError(f"50k solve: {iters} IRLS iterations or non-finite")
     if abs(err - LARGE_JAX_F64_MEAN_ERR_DEG) >= LARGE_TOL_DEG:
@@ -1589,7 +1987,8 @@ def phase_kitti_resolve(card):
             eng.add_edge(int(i), int(j), q)
         eng.Q = Q0.copy()
         eng.fix_pose(0)
-        with _CountCG() as cg, counting_segments(f"phase5c_{name}"):
+        with CountCG() as cg, counting_solver(
+                f"phase5c_{name}", CG_PATH if name == "cg" else DENSE_PATH):
             stats, secs = _sync_s(torch, lambda: eng.rot_avg(5_000_000))
         out[name] = (eng.Q.copy(), stats, secs, cg.total())
         print(f"[solver] KITTI-length re-solve, {name}: {KITTI_VIEWS} views, "
@@ -1620,7 +2019,7 @@ def phase_windows(card):
     problems = bench_windows(N_WINDOWS)
     times = []
     for r in range(4):           # the first call includes CUDA start-up
-        with counting_segments(f"phase5d_batched{r}"):
+        with counting_solver(f"phase5d_batched{r}"):
             (Qb, wb, itb, _), secs = _sync_s(torch, lambda: solve_windows(
                 problems, m_pad=64, n_pad=16, device=dev))
         times.append(secs)
@@ -1685,6 +2084,8 @@ def phase_distributed(card, out):
     import torch
     import torch.distributed as dist
 
+    from composed_laplacian import bits_equal
+
     from irotavg_tpu_torch import so3
     from irotavg_tpu_torch.parallel import (
         init_multihost, make_graph_mesh, scaling_probe, shard_graph,
@@ -1720,8 +2121,8 @@ def phase_distributed(card, out):
         runs = {}
         for name, fn, sharded in solves:
             mesh.all_reduces = 0
-            with _CountCG(sharded) as cg, \
-                    counting_segments(f"phase8_{name}"):
+            with CountCG(sharded) as cg, \
+                    counting_solver(f"phase8_{name}", CG_PATH):
                 (Q, _w, iters, _s), secs = _sync_s(torch, fn)
             runs[name] = (Q, iters, cg.total(), secs, mesh.all_reduces)
         print(f"[dist] world size {mesh.size}, backend "
@@ -1733,14 +2134,14 @@ def phase_distributed(card, out):
             Qa, ia, ca, sa, _ = runs[single]
             Qb, ib, cb, sb, nb = runs[sharded]
             geo = float(geo_deg(Qa.cpu().numpy(), Qb.cpu().numpy()).max())
-            same = _bits_equal(Qa, Qb)
+            same = bits_equal(Qa, Qb)
             err = _mean_err_deg(Qb, p["Q_gt"])
             print(f"[dist] {sharded} IRLS iterations {ib}, CG iterations "
                   f"{cb}, {nb} all_reduces, {sb:.3f} s; {single} {ia} / "
                   f"{ca}, {sa:.3f} s; max geodesic {geo:.3e} deg, "
                   f"bit-identical {same}; mean error vs GT {err:.10f} deg; "
-                  f"segment_sum launches "
-                  f"{SEGMENT_LAUNCHES['phase8_' + sharded]}  ({card})")
+                  f"solver launches "
+                  f"{SOLVER_LAUNCHES['phase8_' + sharded]}  ({card})")
             if not (ia == ib and ca == cb and geo == 0.0):
                 failures.append(f"{sharded}: iterations {ib}/{cb} vs "
                                 f"{ia}/{ca}, geodesic {geo}")
@@ -1861,8 +2262,9 @@ def phase_resume(card, out, seq, gt, yaml, full):
 
 def _sift_agreement(card_out, cpu_out):
     """(share of the CPU's valid keypoints found by the card at the same
-    (octave, x0, y0), share of those with descriptors within
-    SIFT_DESC_TOL, worst descriptor error)."""
+    (octave, x0, y0), bit for bit, share of those with descriptors within
+    SIFT_DESC_TOL, worst descriptor error, share of those with
+    descriptors bit-identical)."""
     def keyed(o):
         o = {k: v.cpu().numpy() for k, v in o.items()}
         return o, {(int(a), float(x), float(y)): i for i, (a, x, y, v) in
@@ -1877,8 +2279,9 @@ def _sift_agreement(card_out, cpu_out):
     ig = np.array([kg[k] for k in common])
     ic = np.array([kc[k] for k in common])
     err = np.abs(g["desc"][ig] - c["desc"][ic]).max(axis=1)
+    same = (g["desc"][ig].view(np.int32) == c["desc"][ic].view(np.int32))
     return (len(common) / len(kc), float((err <= SIFT_DESC_TOL).mean()),
-            float(err.max()))
+            float(err.max()), float(same.all(axis=1).mean()))
 
 
 def _trace_kernels(trace_dir):
@@ -1901,6 +2304,8 @@ def phase_surfaces(card, out, seq, yaml, vocab_path, res3):
     (launches, launches by gate) of the matcher and two-view calls and of
     the CLI run."""
     import torch
+
+    from composed_laplacian import bits_equal
 
     from irotavg_tpu_torch.frontend.camera import Camera
     from irotavg_tpu_torch.frontend.frame import Frame
@@ -2019,9 +2424,17 @@ def phase_surfaces(card, out, seq, yaml, vocab_path, res3):
     # SIFT on the card against the CPU, and match_sift
     sift = SIFTExtractor(device=dev)
     sift_cpu = SIFTExtractor(device="cpu")
-    s_card = [sift(im) for im in imgs]
+    with counting_solver("phase10_sift", ("segment_sum",)):
+        s_card = [sift(im) for im in imgs]
+        torch.cuda.synchronize()
+    s_again = sift(imgs[0])
+    repeats = all(bits_equal(s_card[0][k], s_again[k])
+                  if s_again[k].is_floating_point()
+                  else torch.equal(s_card[0][k], s_again[k])
+                  for k in s_again)
     s_cpu = sift_cpu(imgs[0])
-    kp_share, desc_share, worst = _sift_agreement(s_card[0], s_cpu)
+    kp_share, desc_share, worst, desc_bits = _sift_agreement(s_card[0],
+                                                             s_cpu)
     sframes = [Frame.from_extracted(i, o, cam) for i, o in enumerate(s_card)]
     m_card = matchers.match_sift(*sframes)
     m_cpu = matchers.match_sift(*[Frame.from_extracted(
@@ -2036,11 +2449,40 @@ def phase_surfaces(card, out, seq, yaml, vocab_path, res3):
           f"{n_valid} valid on the card: {kp_share:.4f} of the CPU's "
           f"keypoints at the same (octave, x0, y0), descriptors within "
           f"{SIFT_DESC_TOL} on {desc_share:.4f} of them (worst "
-          f"{worst:.3e}); match_sift valid rows equal to the CPU's "
-          f"{m_share:.4f} "
-          f"({int((m_card >= 0).sum())} matches)  ({card})")
+          f"{worst:.3e}), bit-identical on {desc_bits:.4f}; match_sift "
+          f"valid rows equal to the CPU's {m_share:.4f} "
+          f"({int((m_card >= 0).sum())} matches); a second run on the card "
+          f"bit-identical: {repeats}; segment_sum launches "
+          f"{SOLVER_LAUNCHES['phase10_sift']['segment_sum']}  ({card})")
     print(f"[surfaces] SIFT extraction {sift_ms:.3f} ms a frame "
           f"({KITTI_W}x{KITTI_H}, median of 10, CUDA events)  ({card})")
+    # in turns against the route before the fixed-order sums: each
+    # histogram one atomic scatter_add (patched in here only)
+    from irotavg_tpu_torch.frontend import sift as sift_mod
+
+    def scatter_bin_sums(bins, vals, n_bins):
+        hist = torch.zeros((bins.shape[0], n_bins), dtype=vals.dtype,
+                           device=vals.device)
+        return hist.scatter_add(1, bins, vals)
+
+    turns = {"segment_sum": [], "scatter_add": []}
+    saved = sift_mod._bin_sums
+    for route in ("segment_sum", "scatter_add", "scatter_add",
+                  "segment_sum"):
+        sift_mod._bin_sums = saved if route == "segment_sum" else \
+            scatter_bin_sums
+        try:
+            turns[route].append(_median_ms(torch, lambda: sift(img_dev),
+                                           reps=10))
+        finally:
+            sift_mod._bin_sums = saved
+    print(f"[surfaces] SIFT ms a frame in turns (segment_sum, scatter_add, "
+          f"scatter_add, segment_sum; median of 10 each): segment_sum "
+          f"{turns['segment_sum'][0]:.3f} / {turns['segment_sum'][1]:.3f}, "
+          f"scatter_add {turns['scatter_add'][0]:.3f} / "
+          f"{turns['scatter_add'][1]:.3f}  ({card})")
+    if not repeats:
+        raise SmokeError("SIFT on the card differs between two runs")
     if kp_share < SIFT_KEYPOINT_SHARE or desc_share < SIFT_DESC_SHARE \
             or m_share < SIFT_MATCH_SHARE:
         raise SmokeError("SIFT on the card disagrees with the CPU")
@@ -2137,6 +2579,7 @@ def main(argv=None) -> int:
         phase_build(card)
         kern = phase_kernels(card)
         seg = phase_segment_kernel(card)
+        fused = phase_laplacian_kernels(card)
         main_launches, main_by_gate, phase3 = phase_main_path(card, args.out)
         frames.append(phase3[0])
         vocab = vocab_file(args.out)
@@ -2172,9 +2615,14 @@ def main(argv=None) -> int:
     kern["prefetch_extraction_ms"] = prefetch
     print(f"[smoke] every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    seg["launches"] = sum(SEGMENT_LAUNCHES.values())
-    seg["launches_by_path"] = dict(SEGMENT_LAUNCHES)
-    print(json.dumps({"kernels": [kern, seg]}))
+    # the composed-route solve of phase 5b is a comparison, not a path
+    paths = {p: c for p, c in SOLVER_LAUNCHES.items()
+             if p != "phase5b_runcomposed"}
+    for entry in [seg] + fused:
+        entry["launches"] = sum(c[entry["name"]] for c in paths.values())
+        entry["launches_by_path"] = {p: c[entry["name"]]
+                                     for p, c in paths.items()}
+    print(json.dumps({"kernels": [kern, seg] + fused}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

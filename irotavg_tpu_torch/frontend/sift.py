@@ -24,7 +24,9 @@ extractor's device, as the reference is a plain XLA program:
 
 The reference maps the per-keypoint work with ``vmap``; here every
 keypoint's bilinear samples are one gather over a (K, 289) and a (K, 256)
-sample grid, and the histograms one ``scatter_add`` each.  SIFT
+sample grid, and the histograms one fixed-order segment sum each
+(``ops/segment.py``: each bin adds its samples in sample order, as the
+CPU's ``scatter_add`` does, so the card repeats from run to run).  SIFT
 descriptors are float rows, so BoW place recognition (a vocabulary of
 ORB words) does not apply to them, as in the reference.
 """
@@ -39,6 +41,7 @@ import torch
 
 from irotavg_tpu_torch.device import pick_device
 from irotavg_tpu_torch.ops.image import pad_reflect101
+from irotavg_tpu_torch.ops.segment import segment_plan, segment_sum
 
 _PI = math.pi
 
@@ -160,6 +163,16 @@ def _bilinear(fields, layer, y, x):
             + fy * (1 - fx) * v10 + fy * fx * v11)
 
 
+def _bin_sums(bins, vals, n_bins):
+    """Per-row histograms ``(K, n_bins)`` of ``vals (K, S)`` into ``bins
+    (K, S)``: each bin adds its samples in sample order, from 0.0 (a
+    segment sum with a plan built for this call)."""
+    K = bins.shape[0]
+    rows = torch.arange(K, device=bins.device)[:, None] * n_bins
+    plan = segment_plan(rows + bins, K * n_bins)
+    return segment_sum(vals.reshape(-1), plan).view(K, n_bins)
+
+
 def _orientation(gx, gy, layer, y, x, sigma):
     """36-bin Gaussian-weighted gradient histogram peak (radians), per
     keypoint; ``y, x, sigma`` are (K,)."""
@@ -178,8 +191,7 @@ def _orientation(gx, gy, layer, y, x, sigma):
     ang = torch.atan2(vy, vx)                       # [-pi, pi]
     bins = torch.floor((ang + _PI) / (2 * _PI) * 36).long()
     bins = torch.clamp(bins, 0, 35)
-    hist = torch.zeros((y.shape[0], 36), dtype=torch.float32, device=dev)
-    hist = hist.scatter_add(1, bins, mag * wgt)
+    hist = _bin_sums(bins, mag * wgt, 36)
     # circular smoothing, then the peak with parabolic interpolation
     hist = (torch.roll(hist, 1, 1) + hist + torch.roll(hist, -1, 1)) / 3.0
     p = torch.argmax(hist, dim=1, keepdim=True)     # first maximum
@@ -216,9 +228,7 @@ def _descriptor(gx, gy, layer, y, x, sigma, theta):
     sb_i = torch.clamp(torch.floor(ii / 4).long(), 0, d - 1)
     sb_j = torch.clamp(torch.floor(jj / 4).long(), 0, d - 1)
     flat = (sb_i * d + sb_j) * nbins + obin
-    desc = torch.zeros((y.shape[0], d * d * nbins), dtype=torch.float32,
-                       device=dev)
-    desc = desc.scatter_add(1, flat, mag * wgt)
+    desc = _bin_sums(flat, mag * wgt, d * d * nbins)
     nrm = torch.linalg.vector_norm(desc, dim=1, keepdim=True) + 1e-12
     desc = torch.clamp(desc / nrm, 0.0, 0.2)
     return desc / (torch.linalg.vector_norm(desc, dim=1, keepdim=True)

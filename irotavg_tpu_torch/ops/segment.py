@@ -9,7 +9,9 @@ between two runs.  Here the terms are sorted once by destination row (a
 :class:`SegmentPlan`), and ``csrc/segment_sum.cu`` adds each row's terms
 in the order of their index, from 0.0, with no atomics: the order in
 which ``index_add_`` on the CPU adds them, so the kernel equals the
-plain version bit for bit and repeats from run to run.
+plain version bit for bit and repeats from run to run.  The CG's Laplacian
+matvec and the dense Laplacian fuse their scatter-adds, in the same
+order, into kernels of their own (``ops/laplacian.py``).
 
 :func:`segment_sum` dispatches on the device of its values only: CPU
 tensors go to :func:`segment_sum_plain`, CUDA tensors launch the kernel
@@ -52,6 +54,7 @@ def segment_plan(ids, rows: int) -> SegmentPlan:
     sorted_ids, perm = torch.sort(ids, stable=True)
     offsets = torch.searchsorted(
         sorted_ids, torch.arange(rows + 1, device=ids.device))
+    segment_plan.builds += 1
     return SegmentPlan(perm=perm, ids=sorted_ids, offsets=offsets,
                        rows=int(rows))
 
@@ -153,6 +156,7 @@ def reset_launch_counts() -> None:
     segment_sum.launches = 0
 
 
-# kernel launches made by segment_sum and segment_sum_launcher (read and
-# reset by chip_smoke.py)
+# kernel launches made by segment_sum and segment_sum_launcher, and plans
+# built (read and reset by chip_smoke.py and the tests)
 reset_launch_counts()
+segment_plan.builds = 0

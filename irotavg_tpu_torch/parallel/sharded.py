@@ -40,9 +40,10 @@ import torch
 
 from irotavg_tpu_torch import so3
 from irotavg_tpu_torch.device import pick_device
+from irotavg_tpu_torch.ops.laplacian import laplacian_matvec
 from irotavg_tpu_torch.solver.graph import (
-    RotationGraph, diag_partial, guard_diag, incidence_matvec,
-    incidence_rmatvec, rmatvec_plan,
+    RotationGraph, diag_partial, graph_plans, guard_diag, incidence_matvec,
+    incidence_rmatvec,
 )
 from irotavg_tpu_torch.solver.graph import _pcg as _graph_pcg
 from irotavg_tpu_torch.solver.irls import (
@@ -189,13 +190,6 @@ def shard_graph(g: RotationGraph, mesh: GraphMesh) -> RotationGraph:
 # ---------------------------------------------------------------------------
 
 
-def _local_matvec(edges, coef, x, free_mask, edge_mask, n, plan):
-    """This shard's part of ``A' diag(coef) A x`` (reduce to combine);
-    ``coef (m, 1)`` masked; ``plan`` the shard's :func:`rmatvec_plan`."""
-    e = incidence_matvec(edges, x, free_mask, edge_mask) * coef
-    return incidence_rmatvec(edges, e, free_mask, edge_mask, n, plan)
-
-
 # the reference's name for the raw diagonal partial
 _local_diag = diag_partial
 
@@ -208,12 +202,13 @@ def _pcg(mesh, edges, coef, rhs, free_mask, edge_mask, plan, *, tol,
     c = torch.where(edge_mask, coef, torch.zeros_like(coef))[..., None]
 
     def matvec(x):
-        return mesh.all_reduce(_local_matvec(edges, c, x, free_mask,
-                                             edge_mask, n, plan))
+        # this shard's part of A' diag(c) A x, one launch of the fused
+        # matvec (its plan holds the shard's edges and masks)
+        return mesh.all_reduce(laplacian_matvec(x, c, plan.matvec))
 
     # the d > 0 guard after the reduction, so a node with no edge in some
     # shard does not pick up a 1 from it
-    d = mesh.all_reduce(_local_diag(edges, c, n))
+    d = mesh.all_reduce(_local_diag(edges, c, n, plan.diag))
     dinv = 1.0 / guard_diag(d, free_mask)
     b = torch.where(free_mask[..., None], rhs, torch.zeros_like(rhs))
     x, k = _graph_pcg(matvec, dinv, b, tol, maxiter, (-2, -1))
@@ -224,19 +219,19 @@ def _irls_step_shard(mesh, edges, QQ, edge_mask, weights, Q, f, node_mask,
                      cfg: IRLSConfig, plan=None):
     """One IRLS iteration on this rank's edge block; ``Q`` replicated.
     Returns (new_Q replicated, new local weights, score tensor).
-    ``plan``: :func:`rmatvec_plan` of the block (built here when not
+    ``plan``: ``graph_plans`` of the block for CG (built here when not
     given; :func:`_run` builds it once for all its steps)."""
     n = Q.shape[-2]
-    if plan is None:
-        plan = rmatvec_plan(edges, n)
     free = (torch.arange(n, device=Q.device) >= f) & node_mask
+    if plan is None:
+        plan = graph_plans(edges, free, edge_mask, n, "cg")
     w3 = so3.log_map(so3.delta_rel(edges, QQ, Q))[..., :3]
     w3 = torch.where(edge_mask[..., None], w3, torch.zeros_like(w3))
 
     wsq = weights * weights
     coef = torch.where(edge_mask, wsq, torch.zeros_like(wsq))
     rhs = mesh.all_reduce(incidence_rmatvec(edges, wsq[..., None] * w3,
-                                            free, edge_mask, n, plan))
+                                            free, edge_mask, n, plan.rmatvec))
     X, _ = _pcg(mesh, edges, coef, rhs, free, edge_mask, plan,
                 tol=cfg.cg_tol, maxiter=cfg.cg_maxiter)
 
@@ -261,7 +256,7 @@ def _run(mesh, g, weights, cfg):
     """IRLS to convergence on this rank's block: (Q, local weights, iters,
     score), the stop read from the replicated score."""
     Q, score, it = g.Q, math.inf, 0
-    plan = rmatvec_plan(g.edges, g.n)
+    plan = graph_plans(g.edges, g.free_mask(), g.edge_mask, g.n, "cg")
     while score > cfg.change_th and it < cfg.max_iters:
         Q, weights, s = _irls_step_shard(mesh, g.edges, g.QQ, g.edge_mask,
                                          weights, Q, g.f, g.node_mask, cfg,

@@ -15,19 +15,24 @@ Two solves of ``(A' diag(coef) A) X = rhs``: a dense Cholesky with the
 reference's singularity rescue (:func:`laplacian_cho_solve`) and the
 matrix-free Jacobi-preconditioned CG (:func:`laplacian_cg_solve`).
 
-Every scatter-add (the reference's ``.at[].add``) is a fixed-order segment
-sum (``ops/segment.py``): each node's terms are added in the order of
-their index, as on the CPU, so a solve on the card gives the same answer
-on every run.  The plan that sorts the terms by node is built once per
-graph (:func:`rmatvec_plan`) and reused by every matvec of a solve.
+Every scatter-add (the reference's ``.at[].add``) is added in a fixed
+order: each node's terms in the order of their index, as on the CPU, so a
+solve on the card gives the same answer on every run.  ``A.T @ e`` and
+the Jacobi diagonal are segment sums (``ops/segment.py``); the CG's
+Laplacian matvec and the dense Laplacian are fused kernels with the same
+order (``ops/laplacian.py``).  Their plans are built once per graph
+(:func:`graph_plans`) and reused by every iteration of a solve.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
+from irotavg_tpu_torch.ops.laplacian import DensePlan, MatvecPlan, \
+    dense_plan, laplacian_assemble, laplacian_matvec, matvec_plan
 from irotavg_tpu_torch.ops.segment import SegmentPlan, segment_plan, \
     segment_sum
 from irotavg_tpu_torch.so3 import take_rows
@@ -146,6 +151,54 @@ def rmatvec_plan(edges, n, batch=None) -> SegmentPlan:
     return _row_plan(torch.cat([edges[..., 1], edges[..., 0]], dim=-1), n)
 
 
+def diag_plan(edges, n, batch=None) -> SegmentPlan:
+    """The plan of :func:`diag_partial` for ``edges (*B, m, 2)`` over ``n``
+    nodes: each node adds its terms as ``i``, then as ``j``, in edge
+    order.  ``batch`` broadcasts the edges over leading dims of the
+    coefficients."""
+    if batch is not None:
+        edges = edges.expand(*batch, *edges.shape[-2:])
+    return _row_plan(torch.cat([edges[..., 0], edges[..., 1]], dim=-1), n)
+
+
+class GraphPlans(NamedTuple):
+    """The plans of one graph, built once per solve by :func:`graph_plans`
+    and reused by every iteration: ``rmatvec`` for ``A.T @ e``
+    (:func:`rmatvec_plan`); for the CG backend ``diag`` (the Jacobi
+    diagonal, :func:`diag_plan`) and ``matvec`` (the Laplacian matvec,
+    ``ops/laplacian.py:matvec_plan``); for the dense backend ``dense``
+    (``ops/laplacian.py:dense_plan``)."""
+
+    rmatvec: SegmentPlan
+    diag: SegmentPlan | None = None
+    matvec: MatvecPlan | None = None
+    dense: DensePlan | None = None
+
+
+def graph_plans(edges, free_mask, edge_mask, n, backend,
+                lanes=None) -> GraphPlans:
+    """The plans a solve of ``backend`` (``"dense"`` or ``"cg"``) needs on
+    the graph ``edges (*B, m, 2)`` with its masks.  ``lanes``: the dense
+    Laplacian is built for that many coefficient rows per graph (L1-RA's
+    per-axis lanes, ``(*B, lanes, n, n)``); the CG takes lanes as
+    columns."""
+    batch = edges.shape[:-2]
+    rmatvec = rmatvec_plan(edges, n)
+    if backend == "cg":
+        return GraphPlans(rmatvec, diag=diag_plan(edges, n),
+                          matvec=matvec_plan(edges, free_mask, edge_mask, n,
+                                             batch))
+    if backend == "dense":
+        if lanes is None:
+            dense = dense_plan(edges, free_mask, edge_mask, n, batch)
+        else:
+            dense = dense_plan(edges[..., None, :, :], free_mask[..., None, :],
+                               edge_mask[..., None, :], n,
+                               (*batch, lanes))
+        return GraphPlans(rmatvec, dense=dense)
+    raise ValueError(f"Unknown backend {backend!r}")
+
+
 def _sum_rows(plan, vals, n):
     """Segment sum of ``vals (*B, N, k)`` by ``plan`` -> ``(*B, n, k)``."""
     k = vals.shape[-1]
@@ -184,15 +237,16 @@ def incidence_rmatvec(edges, e, free_mask, edge_mask, n, plan=None):
     return torch.where(free_mask[..., None], out, torch.zeros_like(out))
 
 
-def diag_partial(edges, c, n):
+def diag_partial(edges, c, n, plan=None):
     """The raw diagonal of ``A' diag(c) A`` for masked coefficients ``c
     (*B, m, k)``, one column per ``k``, before :func:`guard_diag`: the
     sum over ``edges`` only, so that the partials of disjoint edge blocks
     add up to the whole graph's (``parallel/sharded.py`` reduces them
     over the ranks, then guards).  Each node adds its terms as ``i``,
-    then as ``j``, in edge order."""
-    edges = edges.expand(*c.shape[:-2], *edges.shape[-2:])
-    plan = _row_plan(torch.cat([edges[..., 0], edges[..., 1]], dim=-1), n)
+    then as ``j``, in edge order.  ``plan``: :func:`diag_plan` of
+    ``edges`` (built here when not given)."""
+    if plan is None:
+        plan = diag_plan(edges, n, c.shape[:-2])
     return _sum_rows(plan, torch.cat([c, c], dim=-2), n)
 
 
@@ -205,10 +259,10 @@ def guard_diag(d, free_mask):
     return torch.where(free_mask[..., None] & (d > 0), d, torch.ones_like(d))
 
 
-def _diag(edges, c, free_mask, n):
+def _diag(edges, c, free_mask, n, plan=None):
     """Diagonal of ``A' diag(c) A`` for masked coefficients ``c (*B, m,
     k)``, one column per ``k``; 1 where a node is fixed or has no weight."""
-    return guard_diag(diag_partial(edges, c, n), free_mask)
+    return guard_diag(diag_partial(edges, c, n, plan), free_mask)
 
 
 def laplacian_diag(edges, coef, free_mask, edge_mask, n):
@@ -218,44 +272,19 @@ def laplacian_diag(edges, coef, free_mask, edge_mask, n):
     return _diag(edges, c[..., None], free_mask, n)[..., 0]
 
 
-def dense_terms(edges, coef, free_mask, edge_mask, n):
-    """The terms of the dense ``A.T diag(coef) A`` as one column: ``(ids,
-    vals, free)``, ``ids`` flat indices into the ``(*B, n, n)`` matrices
-    and ``free`` the ``(*B, n)`` free mask.  The four blocks ``(i, i)``,
-    ``(j, j)``, ``(i, j)``, ``(j, i)`` come one after the other, each in
-    edge order, so every entry adds its terms in the reference's order."""
-    c = torch.where(edge_mask, coef, torch.zeros_like(coef))
-    batch = c.shape[:-1]
-    i = edges[..., 0].expand(c.shape)
-    j = edges[..., 1].expand(c.shape)
-    free = free_mask.expand(*batch, n)
-    fi = torch.gather(free, -1, i)
-    fj = torch.gather(free, -1, j)
-    both = fi & fj
-    zero = torch.zeros_like(c)
-    base = torch.arange(c[..., 0].numel(), device=c.device).view(
-        *batch, 1) * (n * n)
-    blocks = ((i, i, torch.where(fi, c, zero)),
-              (j, j, torch.where(fj, c, zero)),
-              (i, j, torch.where(both, -c, zero)),
-              (j, i, torch.where(both, -c, zero)))
-    ids = torch.cat([(base + r * n + s).reshape(-1) for r, s, _ in blocks])
-    vals = torch.cat([v.reshape(-1) for _, _, v in blocks])
-    return ids, vals, free
-
-
-def laplacian_dense(edges, coef, free_mask, edge_mask, n, ridge=0.0):
+def laplacian_dense(edges, coef, free_mask, edge_mask, n, ridge=0.0,
+                    plan=None):
     """Dense ``A.T diag(coef) A`` with identity rows/cols on fixed nodes.
 
     ``coef (*B, m)``; ``edges``, ``free_mask`` and ``edge_mask`` broadcast
     to it (one graph may carry several coefficient rows).  Returns
-    ``(*B, n, n)``."""
-    ids, vals, free = dense_terms(edges, coef, free_mask, edge_mask, n)
-    L = segment_sum(vals, segment_plan(ids, free.numel() * n))
-    fixed_diag = torch.where(free, torch.full_like(free, ridge,
-                                                   dtype=vals.dtype),
-                             torch.ones_like(free, dtype=vals.dtype))
-    return L.view(free.shape + (n,)) + torch.diag_embed(fixed_diag)
+    ``(*B, n, n)``, each entry's terms added in the reference's order
+    ``(i, i)``, ``(j, j)``, ``(i, j)``, ``(j, i)``, each in edge order.
+    ``plan``: ``ops/laplacian.py:dense_plan`` of the graph for ``coef``'s
+    batch (built here when not given)."""
+    if plan is None:
+        plan = dense_plan(edges, free_mask, edge_mask, n, coef.shape[:-1])
+    return laplacian_assemble(coef, plan, ridge)
 
 
 def _cho_solve(L, rhs):
@@ -269,15 +298,17 @@ def _cho_solve(L, rhs):
 
 
 def laplacian_cho_solve(edges, coef, rhs, free_mask, edge_mask, n,
-                        ridge=0.0):
+                        ridge=0.0, plan=None):
     """Dense Cholesky solve of ``(A' diag(coef) A) X = rhs`` with the
     reference's singularity rescue: where the plain factorisation fails
     (or yields non-finite values) the result is that of a re-run with a
     tiny relative shift on the free diagonal, its non-finite entries (or
     all of it, if that factorisation fails too) set to 0.  The rescue is
     computed for every system and selected per system, so the solve needs
-    no host read; well-posed systems keep the unshifted result."""
-    L = laplacian_dense(edges, coef, free_mask, edge_mask, n, ridge=ridge)
+    no host read; well-posed systems keep the unshifted result.  ``plan``:
+    as for :func:`laplacian_dense`."""
+    L = laplacian_dense(edges, coef, free_mask, edge_mask, n, ridge=ridge,
+                        plan=plan)
     X, ok = _cho_solve(L, rhs)
     free = free_mask.expand(L.shape[:-1])
     n_free = free.sum(-1, keepdim=True).clamp(min=1)
@@ -339,26 +370,28 @@ def _pcg(matvec, dinv, b, tol, maxiter, dims):
 def laplacian_cg_solve(edges, coef, rhs, free_mask, edge_mask, *, tol=1e-10,
                        maxiter=500, per_column=False, plan=None):
     """Matrix-free Jacobi-preconditioned CG for ``(A.T diag(coef) A) x =
-    rhs``; the matvec is two gathers and two scatter-adds.
+    rhs``; the matvec is one fused kernel (``ops/laplacian.py``).
 
     ``rhs (*B, n, k)``.  By default the k right-hand sides are solved at
     once, as one system with shared step sizes (the reference); with
     ``per_column`` each column is its own CG with its own stop (the
     reference's ``vmap`` over columns), and ``coef`` may then be ``(*B,
-    m, k)``, one weight row per column.  ``plan``: :func:`rmatvec_plan`
-    of ``edges``, built here once when not given.  Returns ``(x, iters)``,
+    m, k)``, one weight row per column.  ``plan``: the graph's
+    :func:`graph_plans` for the CG backend (its ``matvec`` and ``diag``
+    plans), built here once when not given.  Returns ``(x, iters)``,
     ``iters`` of shape ``*B`` (``(*B, k)`` per column)."""
     n = rhs.shape[-2]
     c = coef if coef.dim() == rhs.dim() else coef[..., None]
     c = torch.where(edge_mask[..., None], c, torch.zeros_like(c))
     if plan is None:
-        plan = rmatvec_plan(edges, n, rhs.shape[:-2])
+        plan = GraphPlans(None, diag=diag_plan(edges, n, c.shape[:-2]),
+                          matvec=matvec_plan(edges, free_mask, edge_mask, n,
+                                             rhs.shape[:-2]))
 
     def matvec(x):
-        e = incidence_matvec(edges, x, free_mask, edge_mask) * c
-        return incidence_rmatvec(edges, e, free_mask, edge_mask, n, plan)
+        return laplacian_matvec(x, c, plan.matvec)
 
-    dinv = 1.0 / _diag(edges, c, free_mask, n)
+    dinv = 1.0 / _diag(edges, c, free_mask, n, plan.diag)
     b = torch.where(free_mask[..., None], rhs, torch.zeros_like(rhs))
     dims = (-2,) if per_column else (-2, -1)
     x, k = _pcg(matvec, dinv, b, tol, maxiter, dims)

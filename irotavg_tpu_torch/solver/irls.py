@@ -20,8 +20,8 @@ import torch
 
 from irotavg_tpu_torch import so3
 from irotavg_tpu_torch.solver.graph import (
-    RotationGraph, incidence_matvec, incidence_rmatvec, laplacian_cg_solve,
-    laplacian_cho_solve, rmatvec_plan,
+    RotationGraph, graph_plans, incidence_matvec, incidence_rmatvec,
+    laplacian_cg_solve, laplacian_cho_solve,
 )
 
 
@@ -125,11 +125,11 @@ class IRLSConfig:
 
 def _solve_wls(g: RotationGraph, coef, rhs, cfg: IRLSConfig, plan):
     """Solve ``(A' diag(coef) A) X = rhs`` over free nodes; X=0 on fixed.
-    ``plan``: the graph's :func:`rmatvec_plan`, for CG's matvecs."""
+    ``plan``: the graph's :func:`graph_plans` for ``cfg.backend``."""
     free = g.free_mask()
     if cfg.backend == "dense":
         X = laplacian_cho_solve(g.edges, coef, rhs, free, g.edge_mask, g.n,
-                                ridge=cfg.ridge)
+                                ridge=cfg.ridge, plan=plan.dense)
         return torch.where(free[..., None], X, torch.zeros_like(X))
     if cfg.backend == "cg":
         X, _ = laplacian_cg_solve(g.edges, coef, rhs, free, g.edge_mask,
@@ -147,20 +147,26 @@ def free_mean(X, free):
     return torch.where(free, norms, torch.zeros_like(norms)).sum(-1) / n_free
 
 
+def _plans(g: RotationGraph, backend, lanes=None):
+    """The graph's :func:`graph_plans` for ``backend``."""
+    return graph_plans(g.edges, g.free_mask(), g.edge_mask, g.n, backend,
+                       lanes)
+
+
 def irls_step(g: RotationGraph, weights, cfg: IRLSConfig, plan=None):
     """One IRLS iteration. Returns (new_Q, new_weights, score tensor).
-    ``plan``: :func:`rmatvec_plan` of ``g.edges`` (built here when not
-    given; :func:`irls` builds it once for all its steps)."""
+    ``plan``: :func:`graph_plans` of ``g`` for ``cfg.backend`` (built here
+    when not given; :func:`irls` builds it once for all its steps)."""
     free = g.free_mask()
     if plan is None:
-        plan = rmatvec_plan(g.edges, g.n)
+        plan = _plans(g, cfg.backend)
     w3 = so3.log_map(so3.delta_rel(g.edges, g.QQ, g.Q))[..., :3]
     w3 = torch.where(g.edge_mask[..., None], w3, torch.zeros_like(w3))
 
     wsq = weights * weights
     coef = torch.where(g.edge_mask, wsq, torch.zeros_like(wsq))
     rhs = incidence_rmatvec(g.edges, wsq[..., None] * w3, free, g.edge_mask,
-                            g.n, plan)
+                            g.n, plan.rmatvec)
     X = _solve_wls(g, coef, rhs, cfg, plan)
 
     E = incidence_matvec(g.edges, X, free, g.edge_mask) - w3
@@ -187,7 +193,7 @@ def irls(g: RotationGraph, cfg: IRLSConfig = IRLSConfig(), weights=None):
     score = torch.full(batch, math.inf, dtype=g.dtype, device=dev)
     it = torch.zeros(batch, dtype=torch.int64, device=dev)
     active = (score > cfg.change_th) & (it < cfg.max_iters)
-    plan = rmatvec_plan(g.edges, g.n)
+    plan = _plans(g, cfg.backend)
     while bool(active.any()):
         Q2, w2, s2 = irls_step(dataclasses.replace(g, Q=Q), weights, cfg,
                                plan)

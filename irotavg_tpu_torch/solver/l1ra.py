@@ -23,9 +23,9 @@ import torch
 from irotavg_tpu_torch import so3
 from irotavg_tpu_torch.solver.graph import (
     RotationGraph, incidence_matvec, incidence_rmatvec, laplacian_cg_solve,
-    laplacian_dense, rmatvec_plan,
+    laplacian_dense,
 )
-from irotavg_tpu_torch.solver.irls import free_mean
+from irotavg_tpu_torch.solver.irls import _plans, free_mean
 
 PDTOL = 1e-3  # ral/l1_irls.cpp:231
 _ALPHA = 0.01
@@ -48,13 +48,14 @@ class L1RAConfig:
 def _newton_dx(edges, sigx, w1p, free, emask, n, cfg: L1RAConfig, plan):
     """The Newton direction ``(A' diag(sigx) A) dx = w1p`` of every lane:
     ``sigx (*B, m, L)``, ``w1p (*B, n, L)``, one system per lane;
-    ``plan`` is the graph's :func:`rmatvec_plan`."""
+    ``plan`` is the graph's ``graph_plans`` for ``cfg.backend`` (its dense
+    plan built for L lanes)."""
     if cfg.backend == "dense":
         # a failed factorisation is zeroed rather than rescued, like the
         # reference (its 3-axis vmap would run both branches of a cond)
         H = laplacian_dense(edges[..., None, :, :], sigx.transpose(-1, -2),
                             free[..., None, :], emask[..., None, :], n,
-                            ridge=cfg.ridge)
+                            ridge=cfg.ridge, plan=plan.dense)
         Lc, info = torch.linalg.cholesky_ex(H)
         dx = torch.cholesky_solve(w1p.transpose(-1, -2)[..., None], Lc)
         dx = torch.where((info == 0)[..., None, None], dx,
@@ -74,7 +75,8 @@ def _l1decode_lanes(y, edges, free, emask, n, cfg: L1RAConfig, plan):
     lane: ``y (*B, m, L)`` holds L right-hand sides of each graph
     ``edges (*B, m, 2)``.  Returns x ``(*B, n, L)``.
 
-    ``plan``: :func:`rmatvec_plan` of ``edges``.  Every lane runs the
+    ``plan``: ``graph_plans`` of ``edges`` for ``cfg.backend``, with L
+    dense lanes.  Every lane runs the
     reference's decoder (``_l1decode_pd_single``
     under ``vmap``): its own Newton steps, backtracking line search and
     stop, and a lane that has stopped is frozen.  Per-lane scalars are
@@ -98,7 +100,7 @@ def _l1decode_lanes(y, edges, free, emask, n, cfg: L1RAConfig, plan):
         return incidence_matvec(edges, x, free, emask)
 
     def Atop(e):
-        return incidence_rmatvec(edges, e, free, emask, n, plan)
+        return incidence_rmatvec(edges, e, free, emask, n, plan.rmatvec)
 
     def pin(fu1, fu2, lamu1, lamu2, u):
         """Neutral interior values on padded rows."""
@@ -216,13 +218,14 @@ def _l1decode_lanes(y, edges, free, emask, n, cfg: L1RAConfig, plan):
 
 def l1ra_step(g: RotationGraph, cfg: L1RAConfig, plan=None):
     """One outer L1-RA iteration. Returns (new_Q, score tensor).
-    ``plan``: :func:`rmatvec_plan` of ``g.edges`` (built here when not
-    given; :func:`l1ra` builds it once for all its steps)."""
+    ``plan``: ``graph_plans`` of ``g`` for ``cfg.backend`` with a dense
+    lane per tangent axis (built here when not given; :func:`l1ra` builds
+    it once for all its steps)."""
     free = g.free_mask()
     w3 = so3.log_map(so3.delta_rel(g.edges, g.QQ, g.Q))[..., :3]
     w3 = torch.where(g.edge_mask[..., None], w3, torch.zeros_like(w3))
     if plan is None:
-        plan = rmatvec_plan(g.edges, g.n)
+        plan = _plans(g, cfg.backend, lanes=3)
     X = _l1decode_lanes(w3, g.edges, free, g.edge_mask, g.n, cfg, plan)
     return so3.qmul(g.Q, so3.exp_map(X)), free_mean(X, free)
 
@@ -238,7 +241,7 @@ def l1ra(g: RotationGraph, cfg: L1RAConfig = L1RAConfig()):
     score = torch.full(batch, math.inf, dtype=g.dtype, device=dev)
     it = torch.zeros(batch, dtype=torch.int64, device=dev)
     active = (score >= cfg.change_th) & (it < cfg.max_iters)
-    plan = rmatvec_plan(g.edges, g.n)
+    plan = _plans(g, cfg.backend, lanes=3)
     while bool(active.any()):
         Q2, s2 = l1ra_step(dataclasses.replace(g, Q=Q), cfg, plan)
         Q = torch.where(active[..., None, None], Q2, Q)
