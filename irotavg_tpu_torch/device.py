@@ -10,8 +10,12 @@
   einsums at ``Precision.HIGHEST``).
 * The rotation solver runs in f64 (``SOLVER_DTYPE``); the H100 has native
   FP64, so the reference's f32 default for large solves is not carried.
-* Random draws come from explicit ``torch.Generator`` objects
-  (:func:`make_generator`), never from global RNG state.
+* Random draws are the JAX package's own: its threefry key tree derived
+  on the host (``prng.py``: ``key``, ``split``, ``fold_in``), and
+  RANSAC's samples mapped from those keys by one hand-written kernel on
+  the card (``ops/draw.py``, ``csrc/threefry_draw.cu``) or its plain
+  version on the CPU, so both devices draw the numbers the JAX CLIs
+  draw.  No global RNG state and no ``torch.Generator`` is involved.
 """
 
 from __future__ import annotations
@@ -42,9 +46,3 @@ def pick_device(name=None) -> torch.device:
             f"the CPU")
     return dev
 
-
-def make_generator(seed: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded with the 32-bit ``seed``."""
-    g = torch.Generator(device=torch.device(device))
-    g.manual_seed(int(seed) & 0xFFFFFFFF)
-    return g

@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from irotavg_tpu_torch import so3
-from irotavg_tpu_torch.device import make_generator
 from irotavg_tpu_torch.engine.incremental import IncrementalRotAvg
 from irotavg_tpu_torch.geometry.fused import (
     fused_bow_pair_estimate, fused_process_frame,
@@ -171,16 +170,12 @@ class ViewGraph:
         # node ids only when every frame involved has them
         # (irotavg_tpu/engine/viewgraph.py:161-166)
         has_nodes = all(f.feat_nodes is not None for f in [frame, prev] + fr)
-        fw = tuple(torch.stack(a) for a in
-                   zip(*[self._tensors(f, has_nodes) for f in fr]))
-
         local_rad, rel_valid, refined, window = fused_process_frame(
             self._tensors(frame, has_nodes), self._tensors(prev, has_nodes),
-            fw,
+            tuple(self._tensors(f, has_nodes) for f in fr),
             torch.as_tensor(m12_w2p, device=dev), active, self.local_rad,
-            c["K_inv"], c["sigma2"], c["cam"], c["th_norm"],
-            make_generator(self.num_views, dev), self.min_matches,
-            2 * self.min_matches, 0.9, has_nodes)
+            c["K_inv"], c["sigma2"], c["cam"], c["th_norm"], self.num_views,
+            self.min_matches, 2 * self.min_matches, 0.9, has_nodes)
         self.local_rad = float(local_rad)
         if self.local_rad < 5.0:
             return False                       # keyframe gate (:1071-1074)
@@ -269,8 +264,8 @@ class ViewGraph:
         E, R, t, n_che, m12, success = fused_bow_pair_estimate(
             self._tensors(f1, has_nodes), self._tensors(f2, has_nodes),
             c["K_inv"], c["sigma2"], c["cam"], c["th_norm"],
-            make_generator((view_id * 31 + cand_id) & 0xFFFFFFFF, dev),
-            0.9, min_matches, has_nodes)
+            (view_id * 31 + cand_id) & 0xFFFFFFFF, 0.9, min_matches,
+            has_nodes)
         if not success:
             return False
         pairs = matches_to_pairs(m12.cpu().numpy())

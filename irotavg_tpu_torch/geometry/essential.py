@@ -11,18 +11,46 @@ arbitrary sign, so an essential matrix agrees with the reference's only
 up to sign — which changes no Sampson residual, no projection and no
 cheirality count.
 
-Random draws come from an explicit ``torch.Generator``; tests may inject
-the reference's own draws (``draws=(idx, idx_h)``).
+The sample draws are the reference's own: JAX's threefry keys derived on
+the host (``prng.py``) and mapped to positions by ``ops/draw.py`` (one
+kernel launch on the card).  The hypotheses, the votes and the pose
+recovery are solved in f64 (native on the H100) from f32 points, and E,
+R and t return in f32: with the same draws, f32 solves on cuSOLVER and
+LAPACK changed the inlier mask of 4 and the cheirality count of 8 in 48
+calls at the per-frame shape, and f64 solves none of the masks.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from irotavg_tpu_torch.ops.draw import draw_positions
+
+F64 = torch.float64
 DIST_THRESH = 50.0  # cv::recoverPose triangulated-distance cutoff
 RERANK_K = 48       # Sampson-best hypotheses re-ranked by cheirality
+# A minimal sample that drew one correspondence twice has a design of
+# rank < 8 (and a refit on fewer than 8 inliers a singular Gram matrix),
+# whose null space the solvers span with bases of their own (LAPACK and
+# cuSOLVER differ), so its "null vector" would depend on the device.
+# _pick_null takes instead the projection of a fixed direction onto the
+# null space, which does not depend on the basis; for a one-dimensional
+# null space that is the null vector, with its sign fixed.
+NULL_PICK = (1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0)
+RANK_TOL = 1e-10       # singular values below this share of the largest
+GRAM_RANK_TOL = 1e-12  # Gram eigenvalues below this share of the largest
 
 _W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values, dtype, device):
+    """The constant ``values`` as a tensor on ``device``, made once per
+    dtype and device (made on every call it would be a host-to-device
+    copy each time).  Shared: never written in place."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _cross(a, b):
@@ -38,9 +66,15 @@ def _svd3x3(E):
     """SVD of (..., 3, 3) -> (U, s, V), singular values descending, with
     the third columns completed as ``u0 x u1`` / ``v0 x v1`` so that U and
     V are proper rotations (the reference's contract; the sign of det E
-    then sits in the implicit third singular value)."""
+    then sits in the implicit third singular value).  Each pair ``(u_i,
+    v_i)`` takes the sign that makes ``u_i . NULL_PICK[:3]`` positive, so
+    the pose and homography hypotheses come in the same order whichever
+    solver (LAPACK or cuSOLVER) made the vectors."""
     U, s, Vh = torch.linalg.svd(E)
     V = Vh.transpose(-2, -1)
+    r = _const(NULL_PICK[:3], U.dtype, U.device)
+    sgn = torch.where((r @ U) < 0, -1.0, 1.0).to(U.dtype)[..., None, :]
+    U, V = U * sgn, V * sgn
     U = torch.cat([U[..., :, :2],
                    _cross(U[..., :, 0], U[..., :, 1])[..., :, None]], dim=-1)
     V = torch.cat([V[..., :, :2],
@@ -122,7 +156,7 @@ def _solve_gram(AtA):
                     AtA[..., 2, 2], AtA[..., 5, 5])
     M = _kron3(T2, T1)
     AtA_n = M @ AtA @ M.transpose(-2, -1)
-    e_n = torch.linalg.eigh(AtA_n)[1][..., :, 0]   # smallest eigenvalue
+    e_n = _gram_null(AtA_n)
     e = (M.transpose(-2, -1) @ e_n[..., None])[..., 0]
     e = e / torch.clamp(torch.linalg.vector_norm(e, dim=-1, keepdim=True),
                         min=1e-30)
@@ -135,10 +169,33 @@ def _eight_point(p1, p2, weights):
     return _solve_gram(AtA)
 
 
+def _pick_null(rows, null):
+    """``NULL_PICK`` projected onto the span of the orthonormal ``rows``
+    (..., 9, 9) selected by ``null`` (..., 9), as a unit vector."""
+    r = _const(NULL_PICK, rows.dtype, rows.device)
+    e = (((rows @ r) * null)[..., None, :] @ rows)[..., 0, :]
+    return e / torch.clamp(torch.linalg.vector_norm(e, dim=-1, keepdim=True),
+                           min=1e-300)
+
+
 def _nullvec(A):
-    """Unit null direction of batched (..., 8, 9) matrices (the right
-    singular vector of the smallest singular value)."""
-    return torch.linalg.svd(A, full_matrices=True)[2][..., 8, :]
+    """Unit null direction of batched (..., 8, 9) matrices: the right
+    singular vectors of the ninth singular value and of those below
+    ``RANK_TOL`` of the largest (:func:`_pick_null`)."""
+    _, s, Vh = torch.linalg.svd(A, full_matrices=True)
+    null = torch.cat([s < RANK_TOL * s[..., :1],
+                      torch.ones_like(s[..., :1], dtype=torch.bool)], dim=-1)
+    return _pick_null(Vh, null)
+
+
+def _gram_null(G):
+    """Unit direction of the smallest eigenvalue of symmetric (..., 9, 9)
+    Gram matrices, with the eigenvalues below ``GRAM_RANK_TOL`` of the
+    largest (:func:`_pick_null`)."""
+    w, V = torch.linalg.eigh(G)
+    null = w < GRAM_RANK_TOL * w[..., -1:]
+    null[..., 0] = True
+    return _pick_null(V.transpose(-2, -1), null)
 
 
 def _norm_pts(q):
@@ -202,7 +259,7 @@ def _homography_ls(p1, p2, w):
     q2, c2, s2 = norm_pts(p2)
     ra, rb = _homography_rows(q1[:, 0], q1[:, 1], q2[:, 0], q2[:, 1])
     AtA = ra.T @ (w[:, None] * ra) + rb.T @ (w[:, None] * rb)
-    Hn = torch.linalg.eigh(AtA)[1][:, 0].reshape(3, 3)
+    Hn = _gram_null(AtA).reshape(3, 3)
     H = _T_inv_of(c2, s2) @ Hn @ _T_of(c1, s1)
     return H / torch.clamp(torch.sqrt(torch.sum(H * H)), min=1e-30)
 
@@ -305,7 +362,7 @@ def _pose_candidates(E):
     Vt = V.transpose(-2, -1)
     U = U * torch.sign(_det3x3(U))[..., None, None]
     Vt = Vt * torch.sign(_det3x3(Vt))[..., None, None]
-    W = torch.tensor(_W, dtype=E.dtype, device=E.device)
+    W = _const(_W, E.dtype, E.device)
     Ra = U @ W @ Vt
     Rb = U @ W.T @ Vt
     tu = U[..., :, 2]
@@ -322,74 +379,76 @@ def _cheirality_counts(E, p1, p2, inl):
     return good.sum(dim=-1).amax(dim=-1)
 
 
-def draw_indices(valid, shape, generator):
-    """Uniform position indices over the valid set: ranks in
-    [0, n_valid) mapped through the cumulative count (the reference's
-    masked draw, essential.py:620-627).  With no valid entry every index
-    is the last position, as the reference's clamped gather reads it."""
-    cs = torch.cumsum(valid.to(torch.int64), dim=0)
-    nv = torch.clamp(cs[-1], min=1)
-    u = torch.rand(shape, generator=generator, device=valid.device,
-                   dtype=torch.float64)
-    ranks = torch.minimum((u * nv).long(), nv - 1)
-    return torch.searchsorted(cs, ranks, right=True).clamp(
-        max=valid.shape[0] - 1)
-
-
-def ransac_essential(p1, p2, valid, generator=None, *, th_norm,
-                     n_samples=1024, h_samples=192, draws=None):
+def ransac_essential(p1, p2, valid, key, *, th_norm, n_samples=1024,
+                     E_seed=None, rerank_k=RERANK_K, h_samples=192):
     """RANSAC essential matrix from (N, 2) normalised correspondences.
 
     Returns (E (3, 3), inlier_mask (N,), n_inliers).  ``th_norm`` is the
-    Sampson threshold in normalised coordinates.  Hypotheses: ``n_samples``
-    minimal 8-point samples and the 8 Faugeras motions of the least-squares
-    refit of the best of ``h_samples`` 4-point homographies.  The Sampson
-    top ``RERANK_K`` are re-ranked by cheirality; the winner is refit on its inliers and the refit kept
-    unless it loses cheirality support.  ``draws=(idx, idx_h)`` replaces
-    the generator's draws (position indices, (S, 8) and (h_samples, 4)).
+    Sampson threshold in normalised coordinates and ``key`` a host key
+    (``prng.key``).  Hypotheses: ``n_samples`` minimal 8-point samples
+    drawn from ``key``, ``E_seed`` (optional (3, 3)) and, when
+    ``h_samples``, the 8 Faugeras motions of the least-squares refit of
+    the best of ``h_samples`` 4-point homographies drawn from
+    ``fold_in(key, 1)``.  The Sampson top ``rerank_k`` are re-ranked by
+    cheirality; the winner is refit on its inliers and the refit kept
+    unless it loses cheirality support.
     """
-    if draws is None:
-        idx = draw_indices(valid, (n_samples, 8), generator)
-        idx_h = draw_indices(valid, (h_samples, 4), generator)
-    else:
-        idx, idx_h = draws
+    idx, idx_h = draw_positions(valid[None], [key],
+                                ((n_samples, 8), (h_samples, 4)))
+    return ransac_drawn(p1, p2, valid, idx[0], idx_h[0], th_norm=th_norm,
+                        E_seed=E_seed, rerank_k=rerank_k)
+
+
+def ransac_drawn(p1, p2, valid, idx, idx_h, *, th_norm, E_seed=None,
+                 rerank_k=RERANK_K):
+    """:func:`ransac_essential` on drawn sample positions ``idx (S, 8)``
+    and ``idx_h (H, 4)`` (``ops/draw.py:draw_positions``; callers with
+    several lanes draw them all at once).  Solves and votes in f64 (see
+    the module doc); E comes back in the points' dtype."""
+    dtype = p1.dtype
+    p1, p2 = p1.to(F64), p2.to(F64)
     E_cand = _project_essential(_eight_point_samples(p1, p2, idx))
+    if E_seed is not None:
+        E_cand = torch.cat([E_cand, E_seed[None].to(F64)], dim=0)
+    th_norm = torch.as_tensor(th_norm, device=p1.device).to(F64)
     th2 = th_norm * th_norm
 
-    Hc = _homography_samples(p1, p2, idx_h)
-    sup_h = _transfer_support(Hc, p1, p2, valid[None, :], 4.0 * th2)
-    H_best = Hc[torch.argmax(sup_h)]
-    hinl = _transfer_inliers(H_best, p1, p2, valid, 4.0 * th2)
-    H_ref = _homography_ls(p1, p2, hinl.to(p1.dtype))
-    sup_ref = _transfer_support(H_ref, p1, p2, valid, 4.0 * th2)
-    H_use = torch.where(sup_ref >= sup_h.max(), H_ref, H_best)
-    Rh, th_ = _decompose_homography(H_use)
-    E_h = _project_essential(_skew(th_) @ Rh)
-    E_cand = torch.cat([E_cand, E_h], dim=0)
+    if idx_h.shape[0]:
+        Hc = _homography_samples(p1, p2, idx_h)
+        sup_h = _transfer_support(Hc, p1, p2, valid[None, :], 4.0 * th2)
+        H_best = Hc[torch.argmax(sup_h)]
+        hinl = _transfer_inliers(H_best, p1, p2, valid, 4.0 * th2)
+        H_ref = _homography_ls(p1, p2, hinl.to(p1.dtype))
+        sup_ref = _transfer_support(H_ref, p1, p2, valid, 4.0 * th2)
+        H_use = torch.where(sup_ref >= sup_h.max(), H_ref, H_best)
+        Rh, th_ = _decompose_homography(H_use)
+        E_h = _project_essential(_skew(th_) @ Rh)
+        E_cand = torch.cat([E_cand, E_h], dim=0)
 
     inl = (sampson_distance(E_cand, p1, p2) < th2) & valid[None, :]
     scores = inl.sum(dim=1)
     # top-k with lower indices first among ties (jax.lax.top_k's order)
-    top = torch.sort(scores, descending=True, stable=True)[1][:RERANK_K]
+    top = torch.sort(scores, descending=True, stable=True)[1][:rerank_k]
     che = _cheirality_counts(E_cand[top], p1, p2, inl[top])
     best = top[torch.argmax(che)]
 
-    E_ref = _project_essential(_eight_point(p1, p2, inl[best].to(p1.dtype)))
+    E_ref = _project_essential(_eight_point(p1, p2, inl[best].to(F64)))
     inl_ref = (sampson_distance(E_ref, p1, p2) < th2) & valid
     che_ref = _cheirality_counts(E_ref, p1, p2, inl_ref)
     better = che_ref >= che.max()
     E_out = torch.where(better, E_ref, E_cand[best])
     inl_out = torch.where(better, inl_ref, inl[best])
-    return E_out, inl_out, inl_out.sum()
+    return E_out.to(dtype), inl_out, inl_out.sum()
 
 
 def recover_pose(E, p1, p2, inlier_mask):
-    """Cheirality-checked (R, t) from E (cv::recoverPose contract).
-    Returns (R, t, n_cheirality, pose_mask) with x2 ~ R x1 + t."""
-    Rs, ts = _pose_candidates(E)
-    z1, z2, dist = _ray_depths(Rs, ts, p1, p2)        # (4, N)
+    """Cheirality-checked (R, t) from E (cv::recoverPose contract), solved
+    in f64 like the RANSAC.  Returns (R, t, n_cheirality, pose_mask) with
+    x2 ~ R x1 + t, R and t in E's dtype."""
+    Rs, ts = _pose_candidates(E.to(F64))
+    z1, z2, dist = _ray_depths(Rs, ts, p1.to(F64), p2.to(F64))  # (4, N)
     good = ((z1 > 0) & (z2 > 0) & (dist < DIST_THRESH)
             & inlier_mask[None, :])
     counts = good.sum(dim=1)
     k = torch.argmax(counts)
-    return Rs[k], ts[k], counts[k], good[k]
+    return Rs[k].to(E.dtype), ts[k].to(E.dtype), counts[k], good[k]

@@ -17,11 +17,17 @@ verification (BoW match, RANSAC, refine).
 Matches travel as assignment vectors ``m12 (N1,)`` (row -> column or -1).
 The reference's ``vmap`` over the K window candidates is a batch axis
 here: the candidates' epipolar re-matching reaches the matcher kernel as
-one batched launch (``B = K``).  Random draws come from one
-``torch.Generator`` per frame, consumed in a fixed order.
+one batched launch (``B = K``).
+
+Random draws follow the reference's key tree call for call: the public
+functions take the reference's ``seed`` (``prng.key(seed)``), and every
+loop splits its keys where the reference's does, one key per lane, so a
+lane the port skips (an inactive window candidate, the refine of a pair
+whose RANSAC failed) disturbs no other lane's draws.  The RANSACs of a
+batch of lanes draw their samples in one ``draw_positions`` call.
 `fused_initial_pose` and `fused_refine_window` are the two halves of
 `fused_process_frame` (before and after the keyframe gate) as public
-calls, each with its own generator made from a seed.
+calls.
 
 The offline pipeline's functions (`fused_flow`, `fused_pair_estimate`)
 take P independent frame pairs: their local matching is one batched
@@ -35,15 +41,16 @@ import math
 
 import torch
 
-from irotavg_tpu_torch.device import make_generator
-from irotavg_tpu_torch.geometry.essential import (
-    ransac_essential, recover_pose,
-)
+from irotavg_tpu_torch import prng
+from irotavg_tpu_torch.geometry.essential import ransac_drawn, recover_pose
 from irotavg_tpu_torch.matching.matchers import (
     _match_by_bow_core, _match_epipolar_core, _match_locally_core,
 )
+from irotavg_tpu_torch.ops.draw import draw_positions
 
 N_SAMPLES = 512        # minimal 8-point samples per RANSAC
+H_SAMPLES = 192        # 4-point homography samples per RANSAC
+F64 = torch.float64
 MAX_ITERS = 10         # refine alternations
 MAX_TRIALS = 6         # initial-pose radius escalations
 GATE_PX = 5.0          # keyframe gate on the mean match displacement
@@ -54,16 +61,43 @@ def _norm_coords(x, y, cam):
     return torch.stack([(x - cx) / fx, (y - cy) / fy], dim=-1)
 
 
-def _ransac_from_assignment(m12, x1, y1, x2, y2, cam, th_norm, gen):
-    """RANSAC + cheirality over an assignment vector (rows of frame 1 ->
-    columns of frame 2).  Returns (E, R, t, n_che, pose_mask)."""
-    p1 = _norm_coords(x1, y1, cam)
+def _mean_disp(xa, ya, xb, yb, matched):
+    """Mean pixel displacement over the matched entries of the last axis,
+    in f32 from an f64 sum (an f32 sum rounds differently on the card and
+    the CPU, and the keyframe gate and the next search radius read it)."""
+    d = torch.hypot(xa.to(F64) - xb.to(F64), ya.to(F64) - yb.to(F64))
+    total = torch.where(matched, d, torch.zeros_like(d)).sum(dim=-1)
+    return (total / matched.sum(dim=-1).clamp(min=1)).to(torch.float32)
+
+
+def _assignment_coords(m12, x1, y1, x2, y2, cam):
+    """Normalised correspondences of L assignment vectors ``m12 (L, N1)``
+    (rows of frame 1 -> columns of frame 2): ``p1``, ``p2`` (L, N1, 2)
+    and ``valid`` (L, N1).  ``x2`` / ``y2`` are ``(L, N2)`` or one
+    ``(N2,)`` frame shared by the lanes."""
     j = m12.clamp(min=0)
-    p2 = _norm_coords(x2[j], y2[j], cam)
-    E, inl, _ = ransac_essential(p1, p2, m12 >= 0, gen, th_norm=th_norm,
-                                 n_samples=N_SAMPLES)
-    R, t, n_che, pose_mask = recover_pose(E, p1, p2, inl)
-    return E, R, t, n_che, pose_mask
+    if x2.dim() == 1:
+        x2, y2 = x2[j], y2[j]
+    else:
+        x2, y2 = x2.gather(1, j), y2.gather(1, j)
+    return (_norm_coords(x1, y1, cam), _norm_coords(x2, y2, cam),
+            m12 >= 0)
+
+
+def _ransac_lanes(p1, p2, valid, keys, th_norm, n_samples=N_SAMPLES):
+    """RANSAC + cheirality for L lanes of correspondences ``p1``, ``p2``
+    (L, N, 2) with ``valid`` (L, N), lane ``l`` drawing from ``keys[l]``:
+    every lane's samples in one :func:`draw_positions` call, then the
+    solves lane by lane.  Returns (E, R, t, n_che, pose_mask) with
+    leading L."""
+    idx, idx_h = draw_positions(valid, keys, ((n_samples, 8),
+                                              (H_SAMPLES, 4)))
+    out = []
+    for k in range(valid.shape[0]):
+        E, inl, _ = ransac_drawn(p1[k], p2[k], valid[k], idx[k], idx_h[k],
+                                 th_norm=th_norm)
+        out.append((E,) + tuple(recover_pose(E, p1[k], p2[k], inl)))
+    return tuple(torch.stack(v) for v in zip(*out))
 
 
 def _flip_assignment(m12_cp, n_prev):
@@ -82,8 +116,8 @@ def _flip_assignment(m12_cp, n_prev):
 
 
 def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
-                 th_norm, gen, min_pairs, has_nodes=False,
-                 max_iters=MAX_ITERS):
+                 th_norm, keys, min_pairs, has_nodes=False,
+                 max_iters=MAX_ITERS, n_samples=N_SAMPLES):
     """`refinePose` over a batch of B row frames.
 
     ``f1`` holds row-frame tensors with a leading batch axis
@@ -97,37 +131,46 @@ def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
     small (< ``min_pairs``, <= 4), recovery gives <= 6 inliers, or after
     two re-solves without improvement.  Stopped lanes are frozen.
     ``has_nodes`` selects the ``epipolar`` gate (same vocabulary node
-    required) over ``epipolar_nonode``.  Returns (E, R, t, best_n,
-    best_m12, iters) per lane.
+    required) over ``epipolar_nonode``.  ``keys`` holds one host key per
+    lane, split once per iteration of that lane (the reference's
+    ``k, sub = split(k)``).  Returns (E, R, t, best_n, best_m12, iters)
+    per lane.
     """
     desc1, nodes1, valid1, angle1, x1, y1, oct1 = f1
     per_lane = f2[0].dim() == 3
-    x2, y2 = f2[4], f2[5]
     B = desc1.shape[0]
     f32 = torch.float32
     E_cur = E0.to(f32).clone()
     E, R, t = E0.to(f32).clone(), R0.to(f32).clone(), t0.to(f32).clone()
     best_n = n0.to(torch.int64).clone()
     best_m12 = m12_0.to(torch.int64).clone()
+    keys = list(keys)
     done = [False] * B
     stall = [0] * B
     it = 0
     while not all(done) and it < max_iters:
         lanes = [b for b in range(B) if not done[b]]
         sel = torch.tensor(lanes, device=desc1.device)
-        F = K_inv.T @ E_cur[sel] @ K_inv
+        # in f64, so that the f32 F is the same on the card and the CPU
+        F = (K_inv.T.to(F64) @ E_cur[sel].to(F64) @ K_inv.to(F64)).to(f32)
         cols = tuple(a[sel] for a in f2) if per_lane else f2
         m12 = _match_epipolar_core(
             desc1[sel], nodes1[sel], valid1[sel], angle1[sel], x1[sel],
             y1[sel], oct1[sel], *cols, F, sigma2, has_nodes=has_nodes)
         counts = (m12 >= 0).sum(dim=1).tolist()
+        subs = []
+        for b in lanes:
+            keys[b], sub = prng.split(keys[b])
+            subs.append(sub)
+        # fresh hypotheses every re-solve (no model seeding): a seeded
+        # pool locks into a model that cheirality rejects
+        Es, Rs, ts, ns, masks = _ransac_lanes(
+            *_assignment_coords(m12, x1[sel], y1[sel], cols[4], cols[5],
+                                cam), subs, th_norm, n_samples)
+        ns = ns.tolist()
         for k, b in enumerate(lanes):
-            # fresh hypotheses every re-solve (no model seeding): a seeded
-            # pool locks into a model that cheirality rejects
-            E_new, R_new, t_new, n_new, pose_mask = _ransac_from_assignment(
-                m12[k], x1[b], y1[b], x2[b] if per_lane else x2,
-                y2[b] if per_lane else y2, cam, th_norm, gen)
-            n_new = int(n_new)
+            E_new, R_new, t_new, pose_mask = Es[k], Rs[k], ts[k], masks[k]
+            n_new = ns[k]
             usable = (counts[k] >= min_pairs and counts[k] > 4
                       and n_new > 6)
             improved = usable and n_new > int(best_n[b])
@@ -144,16 +187,19 @@ def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
     return E, R, t, best_n, best_m12, it
 
 
-def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, gen, min_inliers,
-                       nnratio):
+def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, key, min_inliers,
+                       nnratio, max_trials, n_samples):
     """`findInitialPose`'s adaptive-radius search.
 
     ``fc`` / ``fp`` are the current / previous frame tensors ``(desc,
     valid, octave, x, y)``.  Matches current -> previous in a window of
     the escalating radius (x1.25 per retry), sets ``local_rad`` to the
     mean match displacement, and accepts once cheirality inliers exceed
-    ``min_inliers``.  Returns (E, R, t, n_che, m12, local_rad, rel_valid,
-    accepted); the pose maps previous -> current.
+    ``min_inliers``, in at most ``max_trials`` trials of ``n_samples``
+    RANSAC samples.  Each trial's RANSAC draws from ``split(key)``'s
+    second key, the first going on to the next trial.  Returns (E, R, t,
+    n_che, m12, local_rad, rel_valid, accepted); the pose maps previous
+    -> current.
     """
     desc_c, valid_c, oct_c, x_c, y_c = fc
     desc_p, valid_p, oct_p, x_p, y_p = fp
@@ -168,17 +214,15 @@ def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, gen, min_inliers,
     m12_best = torch.full(x_c.shape, -1, dtype=torch.int64, device=dev)
     valid_rel = False
     accepted = False
-    for _ in range(MAX_TRIALS):
+    for _ in range(max_trials):
         m12 = _match_locally_core(desc_c, valid_c, oct_c, x_c, y_c,
                                   desc_p, valid_p, oct_p, x_p, y_p,
                                   rad, nnratio)
         matched = m12 >= 0
         j = m12.clamp(min=0)
         count = int(matched.sum())
-        disp = torch.hypot(x_c - x_p[j], y_c - y_p[j])
         if count > 0:
-            local_rad = (torch.where(matched, disp, torch.zeros_like(disp))
-                         .sum() / count).to(f32)
+            local_rad = _mean_disp(x_c, y_c, x_p[j], y_p[j], matched)
         rad = float(torch.tensor(rad, dtype=f32) * 1.25)   # in f32
         if count <= 4:
             # too few: local_rad = 1 fails the keyframe gate downstream;
@@ -187,11 +231,11 @@ def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, gen, min_inliers,
             accepted = False
             break
         # pose: previous -> current, so frame-1 coordinates come via m12
+        key, sub = prng.split(key)
         p1 = _norm_coords(x_p[j], y_p[j], cam)
         p2 = _norm_coords(x_c, y_c, cam)
-        E, inl, _ = ransac_essential(p1, p2, matched, gen, th_norm=th_norm,
-                                     n_samples=N_SAMPLES)
-        R, t, n_new, pose_mask = recover_pose(E, p1, p2, inl)
+        E, R, t, n_new, pose_mask = (a[0] for a in _ransac_lanes(
+            p1[None], p2[None], matched[None], [sub], th_norm, n_samples))
         n_che = int(n_new)
         valid_rel = n_che > 6
         accepted = valid_rel and n_che > min_inliers
@@ -203,11 +247,15 @@ def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, gen, min_inliers,
 
 
 def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
-                         th_norm, gen, min_matches, has_nodes=False):
+                         th_norm, key, min_matches, has_nodes=False,
+                         n_samples=N_SAMPLES):
     """The window walk's per-older-view RANSAC + refinement, batched over
     the K candidates (leading axis of ``fw`` and ``m12_0``; ``active`` a
-    host list of bools).  Returns (E, R, t, n_che, m12, success) with
-    leading axis K; the caller stops at the first failure."""
+    host list of bools).  Candidate ``k`` draws from ``split(key, K)[k]``:
+    its RANSAC (``n_samples`` samples) from that key, its refine (always
+    ``N_SAMPLES``, as the reference's) from the key's ``split(...)[1]``.
+    Returns (E, R, t, n_che, m12, success) with leading axis K; the
+    caller stops at the first failure."""
     desc_w, nodes_w, valid_w, angle_w, x_w, y_w, oct_w = fw
     x2, y2 = f2[4], f2[5]
     K = desc_w.shape[0]
@@ -219,25 +267,31 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
     n = torch.zeros(K, dtype=torch.int64, device=dev)
     m12 = torch.full(m12_0.shape, -1, dtype=torch.int64, device=dev)
     rel_ok = [False] * K
+    keys = prng.split(key, K)
+    # the reference computes and discards the inactive lanes
+    lanes = [k for k in range(K) if active[k]]
     refine = []
-    for k in range(K):
-        if not active[k]:
-            continue          # the reference discards these lanes
-        count0 = int((m12_0[k] >= 0).sum())
-        E0, R0, t0, n0, pose_mask = _ransac_from_assignment(
-            m12_0[k], x_w[k], y_w[k], x2, y2, cam, th_norm, gen)
-        E[k], R[k], t[k], n[k] = E0, R0, t0, n0
-        m12[k] = torch.where(pose_mask, m12_0[k],
-                             torch.full_like(m12_0[k], -1))
-        rel_ok[k] = count0 > 4 and int(n0) > 6
-        if rel_ok[k] and int((m12[k] >= 0).sum()) > 10:
-            refine.append(k)
+    if lanes:
+        sel = torch.tensor(lanes, device=dev)
+        m12_a = m12_0[sel]
+        count0 = (m12_a >= 0).sum(dim=1).tolist()
+        E[sel], R[sel], t[sel], n[sel], pose_mask = _ransac_lanes(
+            *_assignment_coords(m12_a, x_w[sel], y_w[sel], x2, y2, cam),
+            [keys[k] for k in lanes], th_norm, n_samples)
+        m12[sel] = torch.where(pose_mask, m12_a, torch.full_like(m12_a, -1))
+        n0 = n[sel].tolist()
+        cntf = (m12[sel] >= 0).sum(dim=1).tolist()
+        for i, k in enumerate(lanes):
+            rel_ok[k] = count0[i] > 4 and n0[i] > 6
+            if cntf[i] > 10:          # implies rel_ok
+                refine.append(k)
     if refine:
         sel = torch.tensor(refine, device=dev)
         cnt = (m12[sel] >= 0).sum(dim=1)
         Er, Rr, tr, nr, m12r, _ = fused_refine(
             tuple(a[sel] for a in fw), f2, E[sel], R[sel], t[sel], cnt,
-            m12[sel], K_inv, sigma2, cam, th_norm, gen,
+            m12[sel], K_inv, sigma2, cam, th_norm,
+            [prng.split(keys[k])[1] for k in refine],
             math.ceil(0.75 * min_matches), has_nodes)
         E[sel], R[sel], t[sel], n[sel], m12[sel] = Er, Rr, tr, nr, m12r
     final = (m12 >= 0).sum(dim=1).tolist()
@@ -248,17 +302,16 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
 def fused_initial_pose(fc, fp, local_rad0, cam, th_norm, seed, min_inliers,
                        nnratio):
     """`findInitialPose`'s adaptive-radius search (src/ViewGraph.cpp:
-    828-902) as one public call: :func:`_initial_pose_core` with a
-    generator seeded ``seed`` on the frames' device (the reference creates
-    its key from the same seed).  ``fc`` / ``fp`` are the current /
-    previous frame tensors ``(desc, valid, octave, x, y)``; matches run
-    current -> previous (gate ``local``); ``min_inliers`` is the accept
-    level (the engine passes ``2 * min_matches``).  Returns (E, R, t,
-    n_che, m12, local_rad, rel_valid, accepted); the pose maps previous
-    -> current."""
-    gen = make_generator(seed, fc[3].device)
-    return _initial_pose_core(fc, fp, local_rad0, cam, th_norm, gen,
-                              min_inliers, nnratio)
+    828-902) as one public call: :func:`_initial_pose_core` with the key
+    ``prng.key(seed)``, as the reference makes it.  ``fc`` / ``fp`` are
+    the current / previous frame tensors ``(desc, valid, octave, x, y)``;
+    matches run current -> previous (gate ``local``); ``min_inliers`` is
+    the accept level (the engine passes ``2 * min_matches``).  Returns
+    (E, R, t, n_che, m12, local_rad, rel_valid, accepted); the pose maps
+    previous -> current."""
+    return _initial_pose_core(fc, fp, local_rad0, cam, th_norm,
+                              prng.key(seed), min_inliers, nnratio,
+                              MAX_TRIALS, N_SAMPLES)
 
 
 def _stack_candidates(cands, n_feat, has_nodes):
@@ -274,21 +327,23 @@ def _stack_candidates(cands, n_feat, has_nodes):
 
 
 def _refine_window_core(fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp,
-                        K_inv, sigma2, cam, th_norm, gen, min_matches,
-                        has_nodes):
+                        K_inv, sigma2, cam, th_norm, key, min_matches,
+                        has_nodes, n_samples):
     """Everything `processFrame` does after the keyframe gate
     (src/ViewGraph.cpp:1081-1136): the epipolar refine of the initial pose
     in the previous -> current orientation, then the pivot-chained window
-    walk over the stacked candidates ``fw``.  Returns ``(refined,
-    window)`` as :func:`fused_process_frame` does."""
+    walk over the stacked candidates ``fw``, each from the second key of
+    one more ``split`` of ``key``, with ``n_samples`` RANSAC samples.
+    Returns ``(refined, window)`` as :func:`fused_process_frame` does."""
     x_p = fp[4]
     m12_pc0 = _flip_assignment(m12_cp, x_p.shape[0])
     cnt0 = (m12_pc0 >= 0).sum()
     min_pairs = math.ceil(0.75 * min_matches)
+    key, sub = prng.split(key)
     Er, Rr, tr, nr, m12_pc, _ = fused_refine(
         tuple(a[None] for a in fp), fc[:6], E0[None], R0[None], t0[None],
-        cnt0[None], m12_pc0[None], K_inv, sigma2, cam, th_norm, gen,
-        min_pairs, has_nodes)
+        cnt0[None], m12_pc0[None], K_inv, sigma2, cam, th_norm, [sub],
+        min_pairs, has_nodes, n_samples=n_samples)
     refined = (Er[0], Rr[0], tr[0], nr[0], m12_pc[0])
 
     # pivot chaining: candidate row -> pivot row -> current column
@@ -297,9 +352,10 @@ def _refine_window_core(fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp,
                           torch.full_like(m12_w2p, -1))
     n_chain = (m12_w2c >= 0).sum(dim=1).tolist()
     active = [bool(a) and c > 5 for a, c in zip(active_w, n_chain)]
+    key, sub = prng.split(key)
     window = fused_window_connect(
-        fw, m12_w2c, active, fc[:6], K_inv, sigma2, cam, th_norm, gen,
-        min_matches, has_nodes)
+        fw, m12_w2c, active, fc[:6], K_inv, sigma2, cam, th_norm, sub,
+        min_matches, has_nodes, n_samples=n_samples)
     return refined, window
 
 
@@ -307,8 +363,8 @@ def fused_refine_window(fc, fp, cands, m12_w2p, active_w, E0, R0, t0,
                         m12_cp, K_inv, sigma2, cam, th_norm, seed,
                         min_matches, has_nodes=False):
     """The post-gate part of `processFrame` as one public call (the JAX
-    package's ``fused_refine_window``): :func:`_refine_window_core` with a
-    generator seeded ``seed``.
+    package's ``fused_refine_window``): :func:`_refine_window_core` with
+    the key ``prng.key(seed)``.
 
     ``fc`` / ``fp`` are the current and previous frame tuples ``(desc,
     nodes, valid, angle, x, y, octave)`` (``nodes`` may be None without
@@ -318,56 +374,71 @@ def fused_refine_window(fc, fp, cands, m12_w2p, active_w, E0, R0, t0,
     ``refined = (E, R, t, n, m12_pc)`` (previous row -> current column)
     and ``window = (E, R, t, n, m12, success)`` with leading K.
     """
+    fc, fp, fw = _frames_with_nodes(fc, fp, cands, has_nodes)
+    return _refine_window_core(
+        fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp, K_inv, sigma2,
+        cam, th_norm, prng.key(seed), min_matches, has_nodes, N_SAMPLES)
+
+
+def _frames_with_nodes(fc, fp, cands, has_nodes):
+    """The current and previous frame tuples with zeros for their node
+    ids without ``has_nodes``, and the stacked candidates."""
     n_feat = fc[4].shape[0]
     if not has_nodes:
         zeros = torch.zeros(n_feat, dtype=torch.int32, device=fc[4].device)
         fc = fc[:1] + (zeros,) + tuple(fc[2:])
         fp = fp[:1] + (zeros,) + tuple(fp[2:])
-    fw = _stack_candidates(cands, n_feat, has_nodes)
-    gen = make_generator(seed, fc[4].device)
-    return _refine_window_core(
-        fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp, K_inv, sigma2,
-        cam, th_norm, gen, min_matches, has_nodes)
+    return fc, fp, _stack_candidates(cands, n_feat, has_nodes)
 
 
-def fused_process_frame(fc, fp, fw, m12_w2p, active_w, local_rad0, K_inv,
-                        sigma2, cam, th_norm, gen, min_matches, min_inliers,
-                        nnratio, has_nodes=False):
+def fused_process_frame(fc, fp, cands, m12_w2p, active_w, local_rad0, K_inv,
+                        sigma2, cam, th_norm, seed, min_matches, min_inliers,
+                        nnratio, has_nodes=False, max_trials=MAX_TRIALS,
+                        n_samples=N_SAMPLES, gate_px=GATE_PX):
     """The whole per-frame pipeline: adaptive initial pose, the 5 px
     keyframe gate, and for accepted frames the epipolar refine of the
     initial pose plus the pivot-chained window walk
     (src/ViewGraph.cpp:1035-1145).
 
-    Frames are tuples ``(desc, nodes, valid, angle, x, y, octave)``; ``fw``
-    stacks the K window candidates.  Returns ``(local_rad, rel_valid,
-    refined, window)`` where ``refined = (E, R, t, n, m12_pc)`` (previous
-    row -> current column) and ``window`` is as in
+    Frames are tuples ``(desc, nodes, valid, angle, x, y, octave)``
+    (``nodes`` may be None without ``has_nodes``); ``cands`` an unstacked
+    tuple of such tuples, one per window candidate.  The key
+    ``prng.key(seed)`` splits into the initial pose's and the rest's, as
+    the reference's does.  Returns ``(local_rad, rel_valid, refined,
+    window)`` where ``refined = (E, R, t, n, m12_pc)`` (previous row ->
+    current column) and ``window`` is as in
     :func:`fused_window_connect`; both are None when the gate rejects.
     """
-    desc_c, nodes_c, valid_c, angle_c, x_c, y_c, oct_c = fc
-    desc_p, nodes_p, valid_p, angle_p, x_p, y_p, oct_p = fp
+    k1, k2 = prng.split(prng.key(seed))
+    desc_c, _, valid_c, _, x_c, y_c, oct_c = fc
+    desc_p, _, valid_p, _, x_p, y_p, oct_p = fp
     E0, R0, t0, _n0, m12_cp, local_rad, rel_valid, _acc = _initial_pose_core(
         (desc_c, valid_c, oct_c, x_c, y_c),
         (desc_p, valid_p, oct_p, x_p, y_p),
-        local_rad0, cam, th_norm, gen, min_inliers, nnratio)
+        local_rad0, cam, th_norm, k1, min_inliers, nnratio, max_trials,
+        n_samples)
     local_rad = float(local_rad)
-    if not local_rad >= GATE_PX:
+    if not local_rad >= gate_px:
         return local_rad, rel_valid, None, None
+    fc, fp, fw = _frames_with_nodes(fc, fp, cands, has_nodes)
     refined, window = _refine_window_core(
         fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp, K_inv, sigma2,
-        cam, th_norm, gen, min_matches, has_nodes)
+        cam, th_norm, k2, min_matches, has_nodes, n_samples)
     return local_rad, rel_valid, refined, window
 
 
-def fused_bow_pair_estimate(f1, f2, K_inv, sigma2, cam, th_norm, gen,
-                            nnratio, min_matches, has_nodes):
+def fused_bow_pair_estimate(f1, f2, K_inv, sigma2, cam, th_norm, seed,
+                            nnratio, min_matches, has_nodes,
+                            n_samples=N_SAMPLES, max_iters=MAX_ITERS):
     """Loop-closure verification (the app's loop-closure block,
     src/IRotAvg.cpp:309-347): BoW-guided matching (gate ``node``, or
     ``none`` without nodes) -> essential RANSAC + cheirality -> epipolar
     refine.
 
     ``f1`` / ``f2`` are the candidate and current frame tensors ``(desc,
-    nodes, valid, angle, x, y, octave)``.  Rejected unless more than 4
+    nodes, valid, angle, x, y, octave)``; the RANSAC and the refine draw
+    from the second keys of two ``split``s of ``prng.key(seed)``, as the
+    reference's do.  Rejected unless more than 4
     matches, more than 6 cheirality inliers and at least ``min_matches``
     of them (:320-326); the refine (rematch floor ``ceil(0.75 *
     min_matches)``) runs when the RANSAC passed and more than 10 matches
@@ -381,8 +452,10 @@ def fused_bow_pair_estimate(f1, f2, K_inv, sigma2, cam, th_norm, gen,
     m12 = _match_by_bow_core(desc1, nodes1, valid1, angle1, desc2, nodes2,
                              valid2, angle2, nnratio, has_nodes=has_nodes)
     count0 = int((m12 >= 0).sum())
-    E, R, t, n, pose_mask = _ransac_from_assignment(
-        m12, x1, y1, x2, y2, cam, th_norm, gen)
+    key, sub = prng.split(prng.key(seed))
+    E, R, t, n, pose_mask = (a[0] for a in _ransac_lanes(
+        *_assignment_coords(m12[None], x1[None], y1[None], x2, y2, cam),
+        [sub], th_norm, n_samples))
     n = int(n)
     rel_ok = count0 > 4 and n > 6 and n >= min_matches
     m12 = torch.where(pose_mask, m12, torch.full_like(m12, -1))
@@ -390,14 +463,15 @@ def fused_bow_pair_estimate(f1, f2, K_inv, sigma2, cam, th_norm, gen,
     if rel_ok and int(cntf) > 10:
         Er, Rr, tr, nr, m12r, _ = fused_refine(
             tuple(a[None] for a in f1), f2[:6], E[None], R[None], t[None],
-            cntf[None], m12[None], K_inv, sigma2, cam, th_norm, gen,
-            math.ceil(0.75 * min_matches), has_nodes)
+            cntf[None], m12[None], K_inv, sigma2, cam, th_norm,
+            [prng.split(key)[1]], math.ceil(0.75 * min_matches), has_nodes,
+            max_iters, n_samples)
         E, R, t, n, m12 = Er[0], Rr[0], tr[0], int(nr[0]), m12r[0]
     success = rel_ok and int((m12 >= 0).sum()) >= min_matches
     return E, R, t, n, m12, success
 
 
-def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, gen,
+def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, key,
                         min_matches, max_iters=MAX_ITERS):
     """Independent two-view estimation for P arbitrary frame pairs (the
     offline pipeline's core, ``_pair_estimate_core`` of the reference).
@@ -412,9 +486,11 @@ def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, gen,
     column frame (gate ``epipolar_nonode``, rematch floor ``ceil(0.75 *
     min_matches)``).  ``success`` (a host list) when ``rel_ok`` and the
     final count reaches ``min_matches``; the pose maps A -> B (edge
-    convention ``R_B = R_AB R_A``).  Draws come from ``gen``: the initial
-    RANSACs pair by pair, then the refine.  Returns (E, R, t, n_che, m12,
-    success) with leading P.
+    convention ``R_B = R_AB R_A``).  Pair ``p`` draws from ``k =
+    split(key, P)[p]``: its RANSAC from ``split(k)[1]``, its refine from
+    ``split(split(k)[0])[1]``, as the reference's lanes do (a lane's keys
+    do not depend on P, so padding a chunk changes no draw).  Returns (E,
+    R, t, n_che, m12, success) with leading P.
     """
     dA, vA, oA, xA, yA, aA = fa
     dB, vB, oB, xB, yB, aB = fb
@@ -422,9 +498,10 @@ def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, gen,
                               radius, 0.9)
     P = dA.shape[0]
     count0 = (m12 >= 0).sum(dim=1).tolist()
-    poses = [_ransac_from_assignment(m12[p], xA[p], yA[p], xB[p], yB[p],
-                                     cam, th_norm, gen) for p in range(P)]
-    E, R, t, n, mask = (torch.stack(v) for v in zip(*poses))
+    lane = [prng.split(k) for k in prng.split(key, P)]
+    E, R, t, n, mask = _ransac_lanes(
+        *_assignment_coords(m12, xA, yA, xB, yB, cam),
+        [sub for _, sub in lane], th_norm)
     m12 = torch.where(mask, m12, torch.full_like(m12, -1))
     n0 = n.tolist()
     cntf = (m12 >= 0).sum(dim=1)
@@ -439,8 +516,8 @@ def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, gen,
             (dA[sel], nodes_a, vA[sel], aA[sel], xA[sel], yA[sel], oA[sel]),
             (dB[sel], nodes_b, vB[sel], aB[sel], xB[sel], yB[sel]),
             E[sel], R[sel], t[sel], cntf[sel], m12[sel], K_inv, sigma2,
-            cam, th_norm, gen, math.ceil(0.75 * min_matches), False,
-            max_iters)
+            cam, th_norm, [prng.split(lane[p][0])[1] for p in refine],
+            math.ceil(0.75 * min_matches), False, max_iters)
     final = (m12 >= 0).sum(dim=1).tolist()
     success = [rel_ok[p] and final[p] >= min_matches for p in range(P)]
     return E, R, t, n, m12, success
@@ -450,12 +527,11 @@ def fused_pair_estimate_gather(desc, valid, octave, x, y, angle, ia, ib,
                                radius, K_inv, sigma2, cam, th_norm, seed,
                                min_matches, max_iters=MAX_ITERS):
     """:func:`fused_pair_estimate` of the pairs ``(ia[p], ib[p])`` of
-    stacked ``(F, N, ...)`` features, with a generator seeded ``seed``."""
+    stacked ``(F, N, ...)`` features, with the key ``prng.key(seed)``."""
     fa = tuple(a[ia] for a in (desc, valid, octave, x, y, angle))
     fb = tuple(a[ib] for a in (desc, valid, octave, x, y, angle))
-    gen = make_generator(seed, desc.device)
     return fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm,
-                               gen, min_matches, max_iters)
+                               prng.key(seed), min_matches, max_iters)
 
 
 def fused_flow(fa, fb, radius):
@@ -469,12 +545,9 @@ def fused_flow(fa, fb, radius):
     xb, yb = fb[3], fb[4]
     m12 = _match_locally_core(*fa, *fb, radius, 0.9)
     matched = m12 >= 0
-    count = matched.sum(dim=1)
     j = m12.clamp(min=0)
-    disp = torch.hypot(xa - xb.gather(1, j), ya - yb.gather(1, j))
-    mean = torch.where(matched, disp, torch.zeros_like(disp)).sum(dim=1) \
-        / count.clamp(min=1)
-    return mean.to(torch.float32), count.to(torch.int32)
+    mean = _mean_disp(xa, ya, xb.gather(1, j), yb.gather(1, j), matched)
+    return mean, matched.sum(dim=1).to(torch.int32)
 
 
 def fused_flow_gather(desc, valid, octave, x, y, ia, ib, radius):

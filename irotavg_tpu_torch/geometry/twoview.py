@@ -6,8 +6,8 @@ bucket-padded normalised coordinates, and `ViewGraph::refinePose`
 (:725-783) as the engine's ``geometry/fused.py:fused_refine`` (epipolar
 re-match on the matcher kernel, re-solve, keep the pose while
 the cheirality count grows).  Both run on the frames' device (the card
-unless the frames are on the CPU); draws come from a ``torch.Generator``
-seeded with ``seed``, as the reference seeds its key.
+unless the frames are on the CPU) and draw from the reference's key
+``prng.key(seed)``.
 """
 
 from __future__ import annotations
@@ -18,8 +18,7 @@ import math
 import numpy as np
 import torch
 
-from irotavg_tpu_torch import so3
-from irotavg_tpu_torch.device import make_generator
+from irotavg_tpu_torch import prng, so3
 from irotavg_tpu_torch.geometry.essential import (
     ransac_essential, recover_pose,
 )
@@ -80,7 +79,7 @@ def find_relative_pose(f1, f2, pairs, camera, *, th: float = 1.0,
 
     p1, p2, valid = (torch.from_numpy(a).to(dev) for a in (p1, p2, valid))
     th_norm = torch.tensor(np.float32(th / float(camera.fx)), device=dev)
-    E, inl, _ = ransac_essential(p1, p2, valid, make_generator(seed, dev),
+    E, inl, _ = ransac_essential(p1, p2, valid, prng.key(seed),
                                  th_norm=th_norm, n_samples=1024)
     R, t, n_che, pose_mask = recover_pose(E, p1, p2, inl)
     n_che = int(n_che)
@@ -103,7 +102,7 @@ def refine_pose(f1, f2, rel: RelativePose, pairs, camera, *,
     else ``rel`` and ``pairs`` unchanged.
 
     Runs :func:`~irotavg_tpu_torch.geometry.fused.fused_refine` on the
-    frames' device with a generator seeded ``seed``; the re-match uses
+    frames' device with the key ``prng.key(seed)``; the re-match uses
     the ``epipolar`` gate when both frames carry vocabulary node ids,
     else ``epipolar_nonode``."""
     dev = f1.device
@@ -134,7 +133,7 @@ def refine_pose(f1, f2, rel: RelativePose, pairs, camera, *,
         tuple(a[None] for a in tensors(f1)), tensors(f2)[:6],
         batch(rel.E), batch(rel.R), batch(rel.t),
         batch(len(pairs), torch.int64), batch(m12_0, torch.int64),
-        K_inv, sigma2, cam, th_norm, make_generator(seed, dev),
+        K_inv, sigma2, cam, th_norm, [prng.key(seed)],
         math.ceil(0.75 * min_matches), has_nodes, max_iters)
     n = int(n[0])
     if n <= len(pairs):

@@ -27,9 +27,12 @@ robust rotation averaging), organised for throughput:
 Divergences from the incremental path (the reference's, kept): window
 edges are matched directly (A against B) rather than through pivot
 chaining (src/ViewGraph.cpp:786-825), and the keyframe gate uses the
-accumulated consecutive flow as the motion estimate.  Random draws come
-from one ``torch.Generator`` per chunk of pairs, seeded ``(seed + lo) &
-0xFFFFFFFF`` like the reference's per-chunk keys.
+accumulated consecutive flow as the motion estimate.  Random draws are
+the reference's: a chunk of pairs starting at ``lo`` draws from the key
+``prng.key((seed + lo) & 0xFFFFFFFF)``, pair ``p`` of it from that key's
+``split(...)[p]``.  The reference pads a chunk's tail with repeated lanes;
+a lane's key does not depend on the chunk's width, so the port does not
+pad, and draws what the reference's real lanes draw.
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from irotavg_tpu_torch import prng
+
 # Machine-epsilon guard of the reference solver (ral/l1_irls.hpp:39).
 EPS = 2.2204e-16
 
@@ -171,12 +173,11 @@ def qgeodesic(q1, q2):
     return qangle(qmul(qconj(q1), q2))
 
 
-def random_quat(generator: torch.Generator, shape=(), dtype=torch.float32,
-                device=None):
-    """Uniformly distributed unit quaternions (Shoemake), drawn from
-    ``generator``."""
-    u = torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype,
-                   device=device)
+def random_quat(key, shape=(), dtype=torch.float32, device=None):
+    """Uniformly distributed unit quaternions (Shoemake) from the host key
+    ``key`` (``prng.key``): the reference's quaternions for the same key,
+    from ``jax.random.uniform``'s numbers (float32 or float64)."""
+    u = prng.uniform(key, tuple(shape) + (3,), dtype, device)
     u1, u2, u3 = u.unbind(-1)
     a = torch.sqrt(1.0 - u1)
     b = torch.sqrt(u1)

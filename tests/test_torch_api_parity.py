@@ -1,14 +1,16 @@
 """Every public name of the JAX package has a counterpart in the port.
 
 The JAX sources are read with ``ast`` (nothing of the JAX package is
-imported here).  Three checks:
+imported here).  Four checks:
 
 * each subpackage ``__init__`` of the JAX package exports nothing the
   port's same subpackage lacks;
 * each module of the JAX package has a port module at the same path
   holding every public top-level function, class and constant;
 * each public class there has every public method and property of the
-  JAX class.
+  JAX class;
+* the functions of ``SIGNATURES`` take the JAX function's parameters, by
+  name and in order.
 
 The deliberate exclusions are listed below, each with its reason.
 """
@@ -146,3 +148,45 @@ def test_exclusions_name_what_exists():
     image = {n.name for n in _tree("ops/image.py").body
              if isinstance(n, ast.FunctionDef)}
     assert {"_band_matrix", "_sep_blur"} <= image
+
+
+# Functions whose parameters follow the JAX package's name for name.  The
+# port passes a frame's arrays as one tuple where the JAX function takes
+# them one by one: each such group of JAX names maps to the port's tuple
+# parameter.  ``device`` is the port's only extra (its entry points run on
+# the card unless asked otherwise).
+_FRAME_C = ("bits_c", "nodes_c", "valid_c", "angle_c", "x_c", "y_c", "oct_c")
+_FRAME_P = ("bits_p", "nodes_p", "valid_p", "angle_p", "x_p", "y_p", "oct_p")
+SIGNATURES = {
+    ("geometry/essential.py", "ransac_essential"): {},
+    ("so3.py", "random_quat"): {},
+    ("geometry/fused.py", "fused_bow_pair_estimate"): {
+        "f1": ("bits1", "nodes1", "valid1", "angle1", "x1", "y1", "oct1"),
+        "f2": ("bits2t", "nodes2", "valid2", "angle2", "x2", "y2")},
+    ("geometry/fused.py", "fused_process_frame"): {
+        "fc": _FRAME_C, "fp": _FRAME_P},
+}
+PORT_EXTRA_PARAMS = ("device",)
+
+
+def _jax_params(rel, name):
+    fn = next(n for n in _tree(rel).body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    a = fn.args
+    return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs]
+
+
+@pytest.mark.parametrize("rel, name", sorted(SIGNATURES))
+def test_parameter_names_follow_jax(rel, name):
+    import inspect
+
+    groups = SIGNATURES[(rel, name)]
+    want = _jax_params(rel, name)
+    for tup, members in groups.items():
+        i = want.index(members[0])
+        assert want[i:i + len(members)] == list(members)
+        want[i:i + len(members)] = [tup]
+    got = [p for p in inspect.signature(
+        getattr(_port_module(rel), name)).parameters
+        if p not in PORT_EXTRA_PARAMS]
+    assert got == want

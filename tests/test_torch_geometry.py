@@ -1,8 +1,12 @@
 """The port's essential RANSAC and pose recovery against the JAX reference.
 
-Both packages get the same f32 correspondences; the port gets the
-reference's own random draws (``jax.random.randint`` mapped through the
-cumulative valid count, essential.py:620-641), injected as ``draws``.
+Both packages get the same f32 correspondences and the same key; the port
+draws the reference's own samples from it (``prng.py``, ``ops/draw.py``:
+``jax.random.randint`` in int32 mapped through the cumulative valid
+count, essential.py:620-641).  The JAX side runs under
+``jax.enable_x64(False)``, as the JAX CLIs do: under the tests' x64
+setting ``randint`` draws int64 and other numbers.  One test also injects
+the x64 draws into the port's ``ransac_drawn``.
 
 Tolerances: E equal up to sign within 1e-4 (singular vectors have an
 arbitrary sign and the decompositions differ); inlier masks equal except
@@ -18,8 +22,10 @@ import torch
 from scipy.spatial.transform import Rotation as Rsc
 
 from irotavg_tpu.geometry import essential as je
+from irotavg_tpu_torch import prng
 from irotavg_tpu_torch.geometry import essential as te
 from test_planar import _scene
+from jax_programs import release_jax_programs  # noqa: F401
 
 # xdist runs several workers on the same cores; torch's default
 # intra-op pool per worker oversubscribes them many times over
@@ -59,18 +65,27 @@ def _jax_draws(valid, key, n_samples, h_samples):
             torch.tensor(np.asarray(idx_h), dtype=torch.int64))
 
 
+def _jax_ransac(p1, p2, valid, seed, n_samples, h_samples):
+    Ej, inlj, _ = je.ransac_essential(
+        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid),
+        jax.random.key(seed), th_norm=jnp.float32(TH), n_samples=n_samples,
+        h_samples=h_samples)
+    return np.asarray(Ej), np.asarray(inlj)
+
+
 def _both(p1, p2, valid, seed, n_samples=512, h_samples=192):
+    """The JAX function in int32 (no x64) and the port drawing from the
+    same key."""
     p1 = p1.astype(np.float32)
     p2 = p2.astype(np.float32)
-    key = jax.random.key(seed)
-    Ej, inlj, nj = je.ransac_essential(
-        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid), key,
-        th_norm=jnp.float32(TH), n_samples=n_samples, h_samples=h_samples)
+    with jax.enable_x64(False):
+        ref = _jax_ransac(p1, p2, valid, seed, n_samples, h_samples)
     Et, inlt, nt = te.ransac_essential(
         torch.from_numpy(p1), torch.from_numpy(p2), torch.from_numpy(valid),
-        th_norm=torch.tensor(TH), n_samples=n_samples, h_samples=h_samples,
-        draws=_jax_draws(valid, key, n_samples, h_samples))
-    return (np.asarray(Ej), np.asarray(inlj)), (Et.numpy(), inlt.numpy())
+        prng.key(seed), th_norm=torch.tensor(TH), n_samples=n_samples,
+        h_samples=h_samples)
+    assert int(nt) == int(inlt.sum())
+    return ref, (Et.numpy(), inlt.numpy())
 
 
 def _check_E_and_mask(ref, got, p1, p2, valid):
@@ -99,10 +114,29 @@ SCENES = {
 
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_ransac_essential_with_injected_draws(scene):
+    """``ransac_drawn`` on the reference's x64 draws (``_jax_draws``)
+    against the JAX function under the tests' x64 setting."""
+    p1, p2, _ = SCENES[scene]()
+    p1, p2 = p1.astype(np.float32), p2.astype(np.float32)
+    valid = np.ones(len(p1), bool)
+    valid[::17] = False                  # exercise the masked draw
+    ref = _jax_ransac(p1, p2, valid, 3, 512, 192)
+    idx, idx_h = _jax_draws(valid, jax.random.key(3), 512, 192)
+    Et, inlt, _ = te.ransac_drawn(
+        torch.from_numpy(p1), torch.from_numpy(p2), torch.from_numpy(valid),
+        idx, idx_h, th_norm=torch.tensor(TH))
+    _check_E_and_mask(ref, (Et.numpy(), inlt.numpy()), p1, p2, valid)
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+@pytest.mark.parametrize("seed", [3, 8])
+def test_ransac_essential_draws_from_the_reference_key(scene, seed):
+    """The port draws for itself from ``prng.key(seed)`` and lands on the
+    JAX function's E and inliers (int32 draws, no x64)."""
     p1, p2, _ = SCENES[scene]()
     valid = np.ones(len(p1), bool)
     valid[::17] = False                  # exercise the masked draw
-    ref, got = _both(p1, p2, valid, seed=3)
+    ref, got = _both(p1, p2, valid, seed=seed)
     _check_E_and_mask(ref, got, p1, p2, valid)
 
 

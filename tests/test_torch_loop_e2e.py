@@ -12,10 +12,13 @@ test_torch_loop_e2e_fixture.py runs the same checks with the repo's
 k=10, L=5 fixture, whose level-1 node ids really split the matches.
 
 Both ViewGraphs get the same features (the port's frames are built from
-the JAX frames' host arrays; each package computes its own BoW).  The
-RANSAC draws differ, so outcomes are compared: the same keyframes and
-loop edges, rotations within 0.5 deg of the reference's after gauge
-alignment, and the reference test's bounds against ground truth
+the JAX frames' host arrays; each package computes its own BoW) and draw
+the same RANSAC samples (the JAX side runs without x64, as its CLI
+does).  Their solves round differently (f64 against f32), which can tip
+a near-tied RANSAC decision, so: the same keyframes, loop edges and
+connections, at least half of the connections carrying exactly the
+reference's pairs, rotations within 0.1 deg of the reference's after
+gauge alignment, and the reference test's bounds against ground truth
 (test_loop_e2e.py:55-79).
 """
 
@@ -23,6 +26,7 @@ import gzip
 import os
 import shutil
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -42,6 +46,7 @@ from irotavg_tpu_torch.interop import (
 from irotavg_tpu_torch.ops import match
 from irotavg_tpu_torch.placerec.vocabulary import Vocabulary
 from seqgen import make_sequence
+from jax_programs import release_jax_programs  # noqa: F401
 
 # xdist runs several workers on the same cores; torch's default
 # intra-op pool per worker oversubscribes them many times over
@@ -105,7 +110,8 @@ def run_both(which, tmp_dir):
     for f in jframes:
         f.compute_bow(jvoc)
     jvg = JaxViewGraph(jcam, min_matches=60)
-    jloops, jkept = _run(jvg, jframes)
+    with jax.enable_x64(False):              # as the JAX CLI runs
+        jloops, jkept = _run(jvg, jframes)
     tframes = []
     for jf in jframes:
         f = frame_from_arrays({k: getattr(jf, k) for k in FRAME_FIELDS},
@@ -159,11 +165,21 @@ def check_rotations_match_reference_and_ground_truth(both):
     jvg, _, jkept = both["jax"]
     vg, _, kept = both["port"]
     q_port = np.asarray(vg.ra.Q)
-    assert _gauge_err_deg(q_port, np.asarray(jvg.ra.Q)).max() < 0.5
+    assert _gauge_err_deg(q_port, np.asarray(jvg.ra.Q)).max() < 0.1
     q_gt = np.stack([np.asarray(jso3.rotmat_to_quat(both["R_gt"][i]))
                      for i in kept])
     err = _gauge_err_deg(q_port, q_gt)
     assert err.mean() < 1.5, f"mean rotation error {err.mean():.2f} deg"
+
+
+def check_connections_carry_reference_pairs(both):
+    """31 of 53 (k8L3) and 34 of 51 (fixture) on a CPU."""
+    jvg, _, _ = both["jax"]
+    vg, _, _ = both["port"]
+    same = [np.array_equal(np.asarray(vg.connections[k].pairs),
+                           np.asarray(jvg.connections[k].pairs))
+            for k in vg.connections]
+    assert sum(same) >= len(same) / 2, (sum(same), len(same))
 
 
 def check_slice_reaches_the_node_and_epipolar_gates(both):
@@ -194,6 +210,10 @@ def test_loop_edges_span_beyond_window(both):
 
 def test_rotations_match_reference_and_ground_truth(both):
     check_rotations_match_reference_and_ground_truth(both)
+
+
+def test_connections_carry_reference_pairs(both):
+    check_connections_carry_reference_pairs(both)
 
 
 def test_slice_reaches_the_node_and_epipolar_gates(both):

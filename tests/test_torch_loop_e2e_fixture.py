@@ -6,6 +6,7 @@ import pytest
 import torch
 
 import test_torch_loop_e2e as slice_
+from jax_programs import release_jax_programs  # noqa: F401
 
 # xdist runs several workers on the same cores; torch's default
 # intra-op pool per worker oversubscribes them many times over
@@ -27,6 +28,10 @@ def test_loop_edges_span_beyond_window(both):
 
 def test_rotations_match_reference_and_ground_truth(both):
     slice_.check_rotations_match_reference_and_ground_truth(both)
+
+
+def test_connections_carry_reference_pairs(both):
+    slice_.check_connections_carry_reference_pairs(both)
 
 
 def test_slice_reaches_the_node_and_epipolar_gates(both):

@@ -12,6 +12,7 @@ refine with one column frame per lane equals the shared-frame refine.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,11 +23,12 @@ from irotavg_tpu.geometry import fused as jfused
 from irotavg_tpu.matching.matchers import \
     _match_locally_core as jax_local_core
 from irotavg_tpu.ops.match_pallas import unpack_pm1
-from irotavg_tpu_torch.device import make_generator
+from irotavg_tpu_torch import prng
 from irotavg_tpu_torch.geometry import fused
 from irotavg_tpu_torch.interop import features_from_arrays
 from irotavg_tpu_torch.matching.matchers import _match_locally_core
 from seqgen import make_sequence
+from jax_programs import release_jax_programs  # noqa: F401
 
 # xdist runs several workers on the same cores; torch's default
 # intra-op pool per worker oversubscribes them many times over
@@ -115,10 +117,11 @@ def test_fused_pair_estimate_matches_jax_outcomes(feats):
     _, j, t, K = feats
     K_inv, sigma2, cam, th_norm = _consts(K)
     ia, ib = PAIRS[:, 0].astype(np.int32), PAIRS[:, 1].astype(np.int32)
-    E_j, R_j, _, _, m_j, s_j = jfused.fused_pair_estimate_gather(
-        j["desc"], j["valid"], j["octave"], j["x0"], j["y0"], j["angle"],
-        ia, ib, RADII, K_inv, sigma2, cam, th_norm, np.uint32(0),
-        np.int32(MIN_MATCHES))
+    with jax.enable_x64(False):
+        E_j, R_j, _, _, m_j, s_j = jfused.fused_pair_estimate_gather(
+            j["desc"], j["valid"], j["octave"], j["x0"], j["y0"],
+            j["angle"], ia, ib, RADII, K_inv, sigma2, cam, th_norm,
+            np.uint32(0), np.int32(MIN_MATCHES))
     E, R, _, n, m12, success = fused.fused_pair_estimate_gather(
         t["desc"], t["valid"], t["octave"], t["x0"], t["y0"], t["angle"],
         torch.from_numpy(ia).long(), torch.from_numpy(ib).long(),
@@ -147,11 +150,10 @@ def _refine_inputs(t, K, lanes):
         t["desc"][ia], t["valid"][ia], t["octave"][ia], t["x0"][ia],
         t["y0"][ia], t["desc"][ib], t["valid"][ib], t["octave"][ib],
         t["x0"][ib], t["y0"][ib], torch.from_numpy(RADII[lanes]), 0.9)
-    gen = make_generator(3, "cpu")
-    poses = [fused._ransac_from_assignment(
-        m12[k], t["x0"][a], t["y0"][a], t["x0"][b], t["y0"][b], cam,
-        th_norm, gen) for k, (a, b) in enumerate(zip(ia, ib))]
-    E, R, tt, n, mask = (torch.stack(v) for v in zip(*poses))
+    E, R, tt, n, mask = fused._ransac_lanes(
+        *fused._assignment_coords(m12, t["x0"][ia], t["y0"][ia],
+                                  t["x0"][ib], t["y0"][ib], cam),
+        prng.split(prng.key(3), len(lanes)), th_norm)
     m12 = torch.where(mask, m12, torch.full_like(m12, -1))
 
     def frame(i, rows):
@@ -166,23 +168,22 @@ def _refine_inputs(t, K, lanes):
 
 def test_refine_per_lane_columns_equal_lane_by_lane(feats):
     """``fused_refine`` with one column frame per lane (one batched
-    match per iteration) equals shared-frame calls lane by lane; one
-    iteration, so the draws are taken in the same order."""
+    match per iteration) equals shared-frame calls lane by lane, through
+    every iteration: each lane draws from its own key."""
     _, _, t, K = feats
     lanes = [0, 1, 3]
     ia, ib, init, consts, frame = _refine_inputs(t, K, lanes)
     floor = math.ceil(0.75 * MIN_MATCHES)
+    keys = prng.split(prng.key(11), len(lanes))
     got = fused.fused_refine(
-        frame(ia, True), frame(ib, False), *init, *consts,
-        make_generator(11, "cpu"), floor, max_iters=1)
-    gen = make_generator(11, "cpu")
+        frame(ia, True), frame(ib, False), *init, *consts, keys, floor)
     for k in range(len(lanes)):
         one = fused.fused_refine(
             tuple(a[None] for a in frame(ia[k], True)), frame(ib[k], False),
-            *(v[k:k + 1] for v in init), *consts, gen, floor, max_iters=1)
+            *(v[k:k + 1] for v in init), *consts, [keys[k]], floor)
         for g, w in zip(got[:5], one[:5]):
             assert torch.equal(g[k], w[0])
-    assert got[5] == 1 and (got[4] >= 0).sum() > 100
+    assert got[5] >= 1 and (got[4] >= 0).sum() > 100
 
 
 def test_refine_shared_frame_equals_broadcast_frame(feats):
@@ -195,12 +196,12 @@ def test_refine_shared_frame_equals_broadcast_frame(feats):
     rows = frame(torch.tensor([4, 4]), True)
     cols = frame(5, False)
     floor = math.ceil(0.75 * MIN_MATCHES)
-    shared = fused.fused_refine(rows, cols, *init, *consts,
-                                make_generator(5, "cpu"), floor)
+    keys = prng.split(prng.key(5))
+    shared = fused.fused_refine(rows, cols, *init, *consts, keys, floor)
     lane_cols = tuple(c[None].expand((2,) + c.shape).contiguous()
                       for c in cols)
-    per_lane = fused.fused_refine(rows, lane_cols, *init, *consts,
-                                  make_generator(5, "cpu"), floor)
+    per_lane = fused.fused_refine(rows, lane_cols, *init, *consts, keys,
+                                  floor)
     for a, b in zip(shared[:5], per_lane[:5]):
         assert torch.equal(a, b)
     assert shared[5] == per_lane[5] >= 1

@@ -34,7 +34,6 @@ def main(argv=None) -> int:
         "chip_smoke_timing", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from irotavg_tpu_torch.device import make_generator
     from irotavg_tpu_torch.ops import match
 
     if not match.__file__.startswith(where):
@@ -42,7 +41,7 @@ def main(argv=None) -> int:
               f"in {where}", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    gen = make_generator(7, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
     card = cs._card(torch)
     for B, n1, n2 in cs.MATCH_SHAPES:
         for gate in match.GATES:
