@@ -10,8 +10,8 @@ prints no result line):
    name and power limit (``nvidia-smi``) and the torch / CUDA versions.
 1. build — compiles every CUDA source of the main path from
    ``irotavg_tpu_torch/csrc`` (``match_best2``, ``segment_sum``,
-   ``laplacian``, ``threefry_draw``), one nvcc each, all started
-   together, and prints the
+   ``laplacian``, ``threefry_draw``, ``ransac_hyp``, ``ransac_vote``),
+   one nvcc each, all started together, and prints the
    build seconds and ptxas's ``-v`` report (registers, shared memory,
    spills).
 2. kernels — each kernel against its plain PyTorch version on the card,
@@ -58,6 +58,16 @@ prints no result line):
    parity check: 48 ``ransac_essential`` + ``recover_pose`` calls at
    phase 3's shape on the card and on the CPU with the same keys, every
    inlier mask and cheirality count equal and E within one f32 rounding.
+   ``ransac_hyp`` (every lane's minimal-sample hypotheses: the draws,
+   the 8-point E projected onto (1, 1, 0), the 4-point H) and
+   ``ransac_vote`` (Sampson and transfer masks and counts, on the
+   kernel's own hypotheses) bit for bit against their plain versions on
+   the same inputs moved to the CPU, at the draw's cases and
+   ``DUPLICATE_CASE`` (samples at given positions, each drawing a
+   correspondence twice), timed at the engine's, ``find_relative_pose``'s
+   and the offline chunk's shapes beside their bounds, the plain
+   versions on the card, ``torch.linalg.svd`` of the same designs and the
+   eager Sampson composition they replaced.
 3. main path — renders the first 150 frames of a one-lap synthetic
    KITTI-sized sequence (1241x376, KITTI 00 intrinsics, 300 frames a lap)
    with numpy, writes them as PGM with a GT file and an ORB-SLAM YAML
@@ -158,7 +168,8 @@ Every path that runs the solver (phases 3-8 and phase 10's CLI runs and
 SIFT) counts the launches of ``segment_sum``, ``laplacian_matvec`` and
 ``laplacian_assemble`` from 0 and fails if it launched a kernel of its
 backend no time (``DENSE_PATH``, ``CG_PATH``); every CLI run counts
-``threefry_draw``'s the same way (``DRAW_LAUNCHES``).
+RANSAC's kernels the same way and fails unless it launched ``ransac_hyp``
+and ``ransac_vote`` and no ``threefry_draw`` (``RANSAC_LAUNCHES``).
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -240,18 +251,18 @@ RESUME_AT = 75
 CPU_RMSE_TOL_DEG = 1e-6
 # phase 3 with per-frame extraction (``--prefetch 1``): the card's batched
 # extraction must give the same
-PER_FRAME_PHASE3 = {"keyframes": 150, "rmse": 0.45808474775439556,
+PER_FRAME_PHASE3 = {"keyframes": 150, "rmse": 0.45808474775435054,
                     "connections": 590,
                     "by_gate": {"none": 0, "node": 0, "local": 149,
                                 "epipolar": 0, "epipolar_nonode": 1352}}
 # phase 4's runs A (loop closure) and B (--no_loop_closure); loop edges
 # sorted
 LOOP_PHASE4 = {
-    "A": {"keyframes": 241, "rmse": 1.9598178140548315, "connections": 1096,
+    "A": {"keyframes": 241, "rmse": 1.959817814054833, "connections": 1096,
           "by_gate": {"none": 0, "node": 148, "local": 258, "epipolar": 2749,
                       "epipolar_nonode": 0},
           "loop_edges": 148, "loop_edge_digest": "b677225072244d11"},
-    "B": {"keyframes": 241, "rmse": 11.181975716911925, "connections": 948,
+    "B": {"keyframes": 241, "rmse": 11.181975716911953, "connections": 948,
           "by_gate": {"none": 0, "node": 0, "local": 258, "epipolar": 2150,
                       "epipolar_nonode": 0},
           "loop_edges": 0, "loop_edge_digest": "4f53cda18c2baa0c"}}
@@ -279,7 +290,7 @@ PORT_OFFLINE = {"keyframes": 241, "edges": 1089, "loop_edges": 135,
                 "loop_edge_digest": "9bd5dffe951b9f97",
                 "by_gate": {"none": 0, "node": 0, "local": 167,
                             "epipolar": 0, "epipolar_nonode": 863},
-                "rmse": 1.3867674306458495}
+                "rmse": 1.3867674306458573}
 # phase 10: SIFT agreement card vs CPU, the two-view tolerance, the CLI
 # run's frames and the kernel's symbol in the trace.  Every keypoint of
 # the CPU's is found by the card (NVIDIA H100 80GB HBM3): the detection
@@ -302,7 +313,8 @@ KERNEL_SYMBOL = "match_best2_kernel"
 
 # the sources of the port's hand-written kernels
 # (irotavg_tpu_torch/csrc/<name>.cu), one nvcc each
-KERNELS = ("match_best2", "segment_sum", "laplacian", "threefry_draw")
+KERNELS = ("match_best2", "segment_sum", "laplacian", "threefry_draw",
+           "ransac_hyp", "ransac_vote")
 # the solver's kernels: segment_sum (ops/segment.py) and the fused
 # Laplacian matvec and assembly (ops/laplacian.py, csrc/laplacian.cu)
 SOLVER_KERNELS = ("segment_sum", "laplacian_matvec", "laplacian_assemble")
@@ -312,8 +324,10 @@ CG_PATH = ("segment_sum", "laplacian_matvec")
 # launches of each solver kernel per driven path, each counted from 0 just
 # before the path runs (read at the end for the kernel report)
 SOLVER_LAUNCHES: dict[str, dict[str, int]] = {}
-# launches of threefry_draw per CLI run, counted the same way
-DRAW_LAUNCHES: dict[str, int] = {}
+# launches of RANSAC's kernels per CLI run, counted the same way: the
+# hypotheses and the vote (each must launch), and threefry_draw (off the
+# RANSAC path since the hypotheses kernel draws for itself: must not)
+RANSAC_LAUNCHES: dict[str, dict[str, int]] = {}
 
 
 class SmokeError(RuntimeError):
@@ -1184,6 +1198,9 @@ DRAW_CASES = (("engine_512x8_192x4", 1, 2000, 0.6, DRAW_MAIN),
               ("lanes_70", 70, 1999, 0.3, DRAW_MAIN),
               ("n_20000", 1, 20000, 0.6, DRAW_MAIN))
 DRAW_TIMED = ("engine_512x8_192x4", "twoview_1024x8_192x4", "offline_8_lanes")
+# the hypotheses kernel's case at given positions: an offline chunk of 8
+# lanes whose samples all drew their first correspondence twice
+DUPLICATE_CASE = ("duplicate_draws", 8, 2000, 0.6, DRAW_MAIN)
 # the RANSAC parity check: calls at phase 3's shapes (2000 correspondence
 # slots, 120 to 500 of them valid, so that many minimal samples draw a
 # correspondence twice; the engine's 512 samples) on the card and on the
@@ -1220,12 +1237,10 @@ def draw_cases(dev, seed=0):
     return out
 
 
-def ransac_parity_inputs(seed):
-    """Phase 3's RANSAC shape from numpy: 2000 slots, 120, 250 or 500
-    valid normalised correspondences of a 3-D scene seen at KITTI's focal
-    length after a 1 deg, 0.3 m step (0.5 px noise, 20% outliers)."""
-    rng = np.random.default_rng(seed)
-    n, m = 2000, (120, 250, 500)[seed % 3]
+def _two_views(rng, m):
+    """``m`` normalised correspondences of a 3-D scene seen at KITTI's
+    focal length after a 1 deg, 0.3 m step (0.5 px noise, 20%
+    outliers): ``q1``, ``q2`` (m, 2) f64."""
     f = KITTI_K[0]
     X = rng.uniform([-8, -3, 5], [8, 3, 40], (m, 3))
     ax = rng.normal(size=3)
@@ -1238,6 +1253,15 @@ def ransac_parity_inputs(seed):
     q2 = X2[:, :2] / X2[:, 2:] + rng.normal(0, 0.5 / f, (m, 2))
     out = rng.random(m) < 0.2
     q2[out] = rng.uniform([-0.8, -0.25], [0.8, 0.25], (int(out.sum()), 2))
+    return q1, q2
+
+
+def ransac_parity_inputs(seed):
+    """Phase 3's RANSAC shape from numpy: 2000 slots, 120, 250 or 500
+    valid correspondences of :func:`_two_views`, f32."""
+    rng = np.random.default_rng(seed)
+    n, m = 2000, (120, 250, 500)[seed % 3]
+    q1, q2 = _two_views(rng, m)
     slots = np.sort(rng.choice(n, m, replace=False))
     p1 = rng.uniform(-0.8, 0.8, (n, 2))
     p2 = rng.uniform(-0.8, 0.8, (n, 2))
@@ -1299,6 +1323,215 @@ def phase_draw_kernel(card):
             "library_note": "none: no PyTorch call draws JAX's threefry "
                             "stream",
             "cases": timed, "ransac_parity": parity}
+
+
+def _case_points(rng, lanes, n):
+    """:func:`_two_views` of ``n`` correspondences per lane, rounded to
+    f32 and held in f64 (the precision RANSAC solves in): ``p1``, ``p2``
+    (L, n, 2)."""
+    views = [_two_views(rng, n) for _ in range(lanes)]
+    return tuple(np.stack([v[i] for v in views]).astype(np.float32)
+                 .astype(np.float64) for i in (0, 1))
+
+
+def ransac_kernel_cases(dev, seed=0):
+    """``(name, p1, p2, valid, keys, positions, shapes)`` on ``dev``: the
+    correspondences of :func:`_case_points` at every ``DRAW_CASES`` shape
+    and valid share (``positions`` None: the kernel draws from
+    ``keys``), and :data:`DUPLICATE_CASE`, whose samples are given with
+    their second correspondence forced equal to their first (every
+    design rank-deficient)."""
+    import torch
+
+    from irotavg_tpu_torch.ops import draw
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, valid, keys, shapes in draw_cases(torch.device("cpu"), seed):
+        p1, p2 = _case_points(rng, *valid.shape)
+        out.append((name, torch.from_numpy(p1).to(dev),
+                    torch.from_numpy(p2).to(dev), valid.to(dev), keys, None,
+                    shapes))
+    name, lanes, n, share, shapes = DUPLICATE_CASE
+    valid = torch.from_numpy(rng.random((lanes, n)) < share)
+    keys = [(0, int(k)) for k in rng.integers(2**32, size=lanes)]
+    idx, idx_h = draw.draw_positions_plain(valid, keys, shapes)
+    idx[..., 1], idx_h[..., 1] = idx[..., 0], idx_h[..., 0]
+    p1, p2 = _case_points(rng, lanes, n)
+    out.append((name, torch.from_numpy(p1).to(dev),
+                torch.from_numpy(p2).to(dev), valid.to(dev), None,
+                (idx.to(dev), idx_h.to(dev)), shapes))
+    return out
+
+
+def _same_bits(a, b):
+    """Bit for bit: f64 tensors as int64 words (NaN and -0.0 included)."""
+    import torch
+
+    if a.dtype == torch.float64:
+        a, b = a.contiguous().view(torch.int64), b.contiguous().view(
+            torch.int64)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_ransac_kernels(card):
+    """``ransac_hyp`` and ``ransac_vote`` on the card against their plain
+    versions on the same inputs moved to the CPU, bit for bit, at
+    :func:`ransac_kernel_cases` (both vote modes, on the kernel's own
+    hypotheses, on ``candidate_pool``'s models and on one model); times
+    at ``DRAW_TIMED`` (the Sampson vote over the pool) beside the bound,
+    the plain version on the card and a yardstick: ``torch.linalg.svd``
+    of the same designs for the hypotheses, today's eager composition
+    (``sampson_distance``, compare, sum) for the vote."""
+    import torch
+
+    from irotavg_tpu_torch.geometry.essential import (candidate_pool,
+                                                      sampson_distance)
+    from irotavg_tpu_torch.ops import ransac
+
+    dev = _device(torch)
+    th = float(np.float32(1.0 / KITTI_K[0]))
+    th2 = torch.tensor(th, dtype=torch.float64, device=dev) ** 2
+    th2h = 4.0 * th2
+    timed = {"ransac_hypotheses": {}, "ransac_vote": {}}
+    for name, p1, p2, valid, keys, pos, shapes in ransac_kernel_cases(dev):
+        (S, _), (Hs, _) = shapes
+        got = ransac.ransac_hypotheses(p1, p2, valid, keys, S, Hs, pos)
+        host = [t.cpu() for t in (p1, p2, valid)]
+        hpos = None if pos is None else tuple(t.cpu() for t in pos)
+        stats = {}
+        ref = ransac.ransac_hypotheses_plain(*host, keys, S, Hs, hpos,
+                                             stats=stats)
+        torch.cuda.synchronize()
+        for g, r, what in zip(got, ref, ("E", "H")):
+            if not _same_bits(g.cpu(), r):
+                bad = int((g.cpu() != r).any(-1).any(-1).sum())
+                raise SmokeError(f"ransac_hyp != plain on {name}: {bad} of "
+                                 f"{r.shape[0] * r.shape[1]} {what} differ")
+        # what the main path votes on: the transfer vote of the H samples,
+        # the Sampson vote of candidate_pool's models (S + 8, and S + 9
+        # with E_seed) and votes of one model in both modes, as for the
+        # rescued H and the refit E (the last two are partial blocks of
+        # the kernel's 16 models); the raw S samples besides
+        pool, _ = candidate_pool(p1, p2, valid, th2, keys=keys,
+                                 positions=pos, n_samples=S, h_samples=Hs)
+        ballots = [(got[1], "transfer", th2h), (got[1][:, -1:], "transfer",
+                                                th2h),
+                   (got[0], "sampson", th2), (pool, "sampson", th2),
+                   (pool[:, -1:], "sampson", th2)]
+        if name == "engine_512x8_192x4":
+            seeded, _ = candidate_pool(p1, p2, valid, th2, keys=keys,
+                                       n_samples=S, h_samples=Hs,
+                                       E_seed=got[0][:, 0])
+            ballots.append((seeded, "sampson", th2))
+        votes = {}
+        for models, mode, t2 in ballots:
+            vm, vc = ransac.ransac_vote(models, p1, p2, valid, t2, mode)
+            rm, rc = ransac.ransac_vote_plain(models.cpu(), *host, t2.cpu(),
+                                              mode)
+            torch.cuda.synchronize()
+            C = models.shape[1]
+            if not (torch.equal(vm.cpu(), rm) and torch.equal(vc.cpu(), rc)):
+                raise SmokeError(
+                    f"ransac_vote ({mode}, C = {C}) != plain on {name}: "
+                    f"{int((vm.cpu() != rm).sum())} mask entries, "
+                    f"{int((vc.cpu() != rc).sum())} counts differ")
+            votes[f"{mode} C={C}"] = int(rc.sum())
+        L, n = valid.shape
+        nv = valid.sum(dim=1).tolist()
+        line = (f"[kernel] ransac_hyp / ransac_vote {name}: {L} lane(s) x "
+                f"{n} slots (valid {min(nv)}-{max(nv)}), {S} + {Hs} "
+                f"samples{' at given positions' if pos is not None else ''}"
+                f", {stats['rank_deficient']} rank-deficient designs, "
+                f"inliers {votes}: equal to the plain versions bit for bit")
+        if name in DRAW_TIMED:
+            launch, _ = ransac.hypotheses_launcher(p1, p2, valid, keys, S, Hs)
+            k_ms = _time_ms(torch, launch)
+            p_ms = _time_ms(torch, lambda: ransac.ransac_hypotheses_plain(
+                p1, p2, valid, keys, S, Hs), per_window=2, windows=3)
+            designs = _designs_on(p1, p2, valid, keys, shapes)
+            s_ms = _time_ms(torch, lambda: torch.linalg.svd(designs),
+                            per_window=5, windows=5)
+            b_ms, b_by = ransac.bound_ms(ransac.hypotheses_work(
+                L, n, S, Hs, stats))
+            timed["ransac_hypotheses"][name] = {
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "bound_share": b_ms / k_ms,
+                "library_ms": s_ms, "qr_ops": stats["qr_ops"],
+                "jacobi3_pairs": stats["pairs3"]}
+            line += (f"; ransac_hyp {k_ms:.4f} ms, bound {b_ms:.6f} ms "
+                     f"({b_by}), share {b_ms / k_ms:.4f}, plain {p_ms:.3f} "
+                     f"ms, svd of the designs {s_ms:.4f} ms")
+            for mode, models, t2 in (("sampson", pool, th2),
+                                     ("transfer", got[1], th2h)):
+                launch, _ = ransac.vote_launcher(models, p1, p2, valid, t2,
+                                                 mode)
+                k_ms = _time_ms(torch, launch)
+                p_ms = _time_ms(torch, lambda: ransac.ransac_vote_plain(
+                    models, p1, p2, valid, t2, mode), per_window=5,
+                    windows=5)
+                b_ms, b_by = ransac.bound_ms(ransac.vote_work(
+                    L, n, models.shape[1], mode))
+                entry = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bound_share": b_ms / k_ms,
+                         "library_ms": None, "models": models.shape[1]}
+                if mode == "sampson":
+                    entry["composition_ms"] = _time_ms(
+                        torch, lambda: [
+                            ((sampson_distance(models[k], p1[k], p2[k]) < t2)
+                             & valid[k]).sum(dim=-1) for k in range(L)],
+                        per_window=5, windows=5)
+                timed["ransac_vote"][f"{name}_{mode}"] = entry
+                line += (f"; vote {mode} of {models.shape[1]} models "
+                         f"{k_ms:.4f} ms, bound {b_ms:.6f} ms "
+                         f"({b_by}), share {b_ms / k_ms:.4f}, plain "
+                         f"{p_ms:.3f} ms"
+                         + (f", composition {entry['composition_ms']:.4f} ms"
+                            if mode == "sampson" else ""))
+        print(f"{line}  ({card})")
+    n_cases = len(DRAW_CASES) + 1
+    print(f"[kernel] ransac_hyp and ransac_vote (both modes) bit-identical to "
+          f"their plain versions in {n_cases} cases  ({card})")
+    main = "engine_512x8_192x4"
+    return [
+        {"name": "ransac_hypotheses", "route": "cuda",
+         "source": "irotavg_tpu_torch/csrc/ransac_hyp.cu",
+         "replaces": "irotavg_tpu/geometry/essential.py:309 "
+                     "_eight_point_samples, :543 _project_essential, :353 "
+                     "_homography_samples and the draws of :620-641 "
+                     "(no Pallas kernel)",
+         "max_abs_err": 0, **timed["ransac_hypotheses"][main],
+         "library_note": "torch.linalg.svd of the same (S + H, 8, 9) "
+                         "designs: the solve only",
+         "cases": timed["ransac_hypotheses"]},
+        {"name": "ransac_vote", "route": "cuda",
+         "source": "irotavg_tpu_torch/csrc/ransac_vote.cu",
+         "replaces": "irotavg_tpu/geometry/essential.py:160 "
+                     "sampson_distance with its compare and count "
+                     "(:660-662, :672-673), :456 _transfer_inliers / :468 "
+                     "_transfer_support (no Pallas kernel)",
+         "max_abs_err": 0, **timed["ransac_vote"][f"{main}_sampson"],
+         "library_note": "none: no one PyTorch call computes the masks and "
+                         "counts; composition_ms is today's eager "
+                         "composition",
+         "cases": timed["ransac_vote"]}]
+
+
+def _designs_on(p1, p2, valid, keys, shapes):
+    """The (L (S + H), 8, 9) designs that ``ransac_hyp`` solves, on the
+    points' device (the yardstick's input)."""
+    import torch
+
+    from irotavg_tpu_torch.ops import draw, ransac
+
+    idx, idx_h = draw.draw_positions_plain(valid, keys, shapes)
+    lane = torch.arange(valid.shape[0], device=p1.device)[:, None, None]
+    out = []
+    for pos, k, essential in ((idx, 8, True), (idx_h, 4, False)):
+        n1 = ransac._hartley(p1[lane, pos].reshape(-1, k, 2))[0]
+        n2 = ransac._hartley(p2[lane, pos].reshape(-1, k, 2))[0]
+        out.append(ransac._designs(n1, n2, essential))
+    return torch.cat(out)
 
 
 def ransac_parity(card):
@@ -1528,31 +1761,42 @@ def rotation_rmse_deg(poses_path, ids_path, R_gt):
 
 def _run_logged(main_fn, argv, out, name):
     """``main_fn(argv)`` in-process, stdout to ``out/name.log``, with the
-    matcher's and the draw kernel's launch counters set to 0 just before
-    and read just after, and the solver kernels' counted under ``name``.
+    matcher's and RANSAC's kernel launch counters set to 0 just before and
+    read just after, and the solver kernels' counted under ``name``.
     Returns (log, wall seconds, launches, launches by gate); raises when
-    it returns non-zero or never launched ``threefry_draw``."""
+    it returns non-zero, never launched ``ransac_hyp`` or ``ransac_vote``,
+    or launched ``threefry_draw``."""
     import contextlib
 
-    from irotavg_tpu_torch.ops import draw, match
+    from irotavg_tpu_torch.ops import draw, match, ransac
 
     log_path = os.path.join(out, f"{name}.log")
     with open(log_path, "w", buffering=1) as fh:           # line-buffered
         match.reset_launch_counts()
         draw.reset_launch_counts()
+        ransac.reset_launch_counts()
         t0 = time.perf_counter()
         with counting_solver(name), contextlib.redirect_stdout(fh):
             rc = main_fn(argv)
         wall = time.perf_counter() - t0
         launches = match.best2.launches
         by_gate = dict(match.best2.launches_by_gate)
-        DRAW_LAUNCHES[name] = draw.draw_positions.launches
+        RANSAC_LAUNCHES[name] = {
+            "ransac_hypotheses": ransac.ransac_hypotheses.launches,
+            "ransac_vote": ransac.ransac_vote.launches,
+            "threefry_draw": draw.draw_positions.launches}
     with open(log_path) as fh:
         log = fh.read()
     if rc != 0:
         raise SmokeError(f"{name} returned {rc}; log tail:\n" + log[-2000:])
-    if DRAW_LAUNCHES[name] <= 0:
-        raise SmokeError(f"{name} never launched threefry_draw")
+    counts = RANSAC_LAUNCHES[name]
+    print(f"[ransac] {name}: launches {json.dumps(counts)}")
+    if counts["ransac_hypotheses"] <= 0 or counts["ransac_vote"] <= 0:
+        raise SmokeError(f"{name} never launched ransac_hyp or ransac_vote: "
+                         f"{counts}")
+    if counts["threefry_draw"]:
+        raise SmokeError(f"{name} launched threefry_draw on the RANSAC path: "
+                         f"{counts}")
     return log, wall, launches, by_gate
 
 
@@ -2846,6 +3090,7 @@ def main(argv=None) -> int:
         seg = phase_segment_kernel(card)
         fused = phase_laplacian_kernels(card)
         drawk = phase_draw_kernel(card)
+        ransack = phase_ransac_kernels(card)
         main_launches, main_by_gate, phase3 = phase_main_path(card, args.out)
         frames.append(phase3[0])
         vocab = vocab_file(args.out)
@@ -2888,9 +3133,13 @@ def main(argv=None) -> int:
         entry["launches"] = sum(c[entry["name"]] for c in paths.values())
         entry["launches_by_path"] = {p: c[entry["name"]]
                                      for p, c in paths.items()}
-    drawk["launches"] = sum(DRAW_LAUNCHES.values())
-    drawk["launches_by_path"] = dict(DRAW_LAUNCHES)
-    print(json.dumps({"kernels": [kern, seg] + fused + [drawk]}))
+    drawk["note"] = ("redesigned as the head of ransac_hypotheses; no "
+                     "longer on the main path")
+    for entry in [drawk] + ransack:
+        by_path = {p: c[entry["name"]] for p, c in RANSAC_LAUNCHES.items()}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
+    print(json.dumps({"kernels": [kern, seg] + fused + [drawk] + ransack}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

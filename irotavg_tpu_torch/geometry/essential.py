@@ -4,20 +4,36 @@ cheirality-checked pose recovery.
 Port of ``irotavg_tpu/geometry/essential.py`` (contract of
 cv::findEssentialMat + cv::recoverPose as used by
 ``ViewGraph::findRelativePose``, src/ViewGraph.cpp:600-650).  The math is
-ported, not the reference's TPU substitutes: ``torch.linalg.svd`` and
-``torch.linalg.eigh`` replace the unrolled Jacobi eigensolver, the
-``E^T E`` SVD and the Householder null vector.  Singular vectors carry an
-arbitrary sign, so an essential matrix agrees with the reference's only
-up to sign — which changes no Sampson residual, no projection and no
+ported, not the reference's TPU substitutes.
+
+The minimal samples are drawn and solved by ``ops/ransac.py``'s
+``ransac_hypotheses``: for every lane in one launch on the card (the
+plain version, the same arithmetic, on the CPU), JAX's threefry draws of
+the reference's keys (derived on the host, ``prng.py``), each sample's
+null direction by a Householder QR with column pivoting of its design
+(rank-revealing: a sample that drew a correspondence twice gets the
+projection of ``NULL_PICK`` onto its null space, which does not depend
+on the basis), and each E's projection onto singular values (1, 1, 0) by
+a 3x3 one-sided Jacobi.  Every inlier vote (the homography samples'
+transfer support, the refit homography's, the Sampson vote of the
+candidate pool and of the refit E) is ``ops/ransac.py``'s
+``ransac_vote``, one launch per batch of lanes.  The rest stays eager
+torch: the homography rescue (least-squares refit by ``eigh``, the
+Faugeras decomposition, the 8 motions, ``torch.linalg.svd`` for their
+projection), the cheirality re-rank, the 8-point refit of the winner
+(``eigh``) and :func:`recover_pose`.  Singular vectors from
+``torch.linalg`` carry an arbitrary sign, so their signs are fixed
+(:func:`_svd3x3`); an essential matrix agrees with the reference's only
+up to sign, which changes no Sampson residual, no projection and no
 cheirality count.
 
-The sample draws are the reference's own: JAX's threefry keys derived on
-the host (``prng.py``) and mapped to positions by ``ops/draw.py`` (one
-kernel launch on the card).  The hypotheses, the votes and the pose
-recovery are solved in f64 (native on the H100) from f32 points, and E,
-R and t return in f32: with the same draws, f32 solves on cuSOLVER and
-LAPACK changed the inlier mask of 4 and the cheirality count of 8 in 48
-calls at the per-frame shape, and f64 solves none of the masks.
+Everything is solved in f64 (native on the H100) from f32 points, and E,
+R and t return in f32, so the card decides as the CPU does: the
+hypotheses and votes equal their plain versions bit for bit, and with the
+same draws the f64 eager solves changed no mask in the card-against-CPU
+parity checks, where f32 solves on cuSOLVER and LAPACK changed the
+inlier mask of 4 and the cheirality count of 8 in 48 calls at the
+per-frame shape.
 """
 
 from __future__ import annotations
@@ -26,20 +42,20 @@ import functools
 
 import torch
 
-from irotavg_tpu_torch.ops.draw import draw_positions
+from irotavg_tpu_torch.ops.ransac import (
+    NULL_PICK, ransac_hypotheses, ransac_vote,
+)
 
 F64 = torch.float64
 DIST_THRESH = 50.0  # cv::recoverPose triangulated-distance cutoff
 RERANK_K = 48       # Sampson-best hypotheses re-ranked by cheirality
 # A minimal sample that drew one correspondence twice has a design of
 # rank < 8 (and a refit on fewer than 8 inliers a singular Gram matrix),
-# whose null space the solvers span with bases of their own (LAPACK and
+# whose null space solvers span with bases of their own (LAPACK and
 # cuSOLVER differ), so its "null vector" would depend on the device.
-# _pick_null takes instead the projection of a fixed direction onto the
-# null space, which does not depend on the basis; for a one-dimensional
-# null space that is the null vector, with its sign fixed.
-NULL_PICK = (1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0)
-RANK_TOL = 1e-10       # singular values below this share of the largest
+# ops/ransac.py and _pick_null take instead the projection of NULL_PICK
+# onto the null space, which does not depend on the basis; for a
+# one-dimensional null space that is the null vector, with its sign fixed.
 GRAM_RANK_TOL = 1e-12  # Gram eigenvalues below this share of the largest
 
 _W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
@@ -178,16 +194,6 @@ def _pick_null(rows, null):
                            min=1e-300)
 
 
-def _nullvec(A):
-    """Unit null direction of batched (..., 8, 9) matrices: the right
-    singular vectors of the ninth singular value and of those below
-    ``RANK_TOL`` of the largest (:func:`_pick_null`)."""
-    _, s, Vh = torch.linalg.svd(A, full_matrices=True)
-    null = torch.cat([s < RANK_TOL * s[..., :1],
-                      torch.ones_like(s[..., :1], dtype=torch.bool)], dim=-1)
-    return _pick_null(Vh, null)
-
-
 def _gram_null(G):
     """Unit direction of the smallest eigenvalue of symmetric (..., 9, 9)
     Gram matrices, with the eigenvalues below ``GRAM_RANK_TOL`` of the
@@ -198,49 +204,12 @@ def _gram_null(G):
     return _pick_null(V.transpose(-2, -1), null)
 
 
-def _norm_pts(q):
-    """Per-sample Hartley normalisation of (S, k, 2) points."""
-    c = q.mean(dim=-2, keepdim=True)
-    var = ((q - c) ** 2).sum(dim=-1).mean(dim=-1)
-    s = torch.sqrt(2.0 / torch.clamp(var, min=1e-12))[..., None, None]
-    return (q - c) * s, c[..., 0, :], s[..., 0, 0]
-
-
-def _eight_point_samples(p1, p2, idx):
-    """Minimal-sample 8-point E for ``idx (S, 8)`` draws, per-sample
-    Hartley normalised; returns (S, 3, 3) (unprojected, unit norm)."""
-    q1n, c1, s1 = _norm_pts(p1[idx])
-    q2n, c2, s2 = _norm_pts(p2[idx])
-    x1, y1 = q1n[..., 0], q1n[..., 1]
-    x2, y2 = q2n[..., 0], q2n[..., 1]
-    rows = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
-                        torch.ones_like(x1)], dim=-1)
-    En = _nullvec(rows).reshape(rows.shape[:-2] + (3, 3))
-    E = _T_of(c2, s2).transpose(-2, -1) @ En @ _T_of(c1, s1)
-    nrm = torch.sqrt(torch.sum(E * E, dim=(-2, -1), keepdim=True))
-    return E / torch.clamp(nrm, min=1e-30)
-
-
 def _homography_rows(x1, y1, x2, y2):
     z = torch.zeros_like(x1)
     o = torch.ones_like(x1)
     ra = torch.stack([x1, y1, o, z, z, z, -x2 * x1, -x2 * y1, -x2], dim=-1)
     rb = torch.stack([z, z, z, x1, y1, o, -y2 * x1, -y2 * y1, -y2], dim=-1)
     return ra, rb
-
-
-def _homography_samples(p1, p2, idx):
-    """Minimal 4-point DLT homographies for ``idx (S, 4)`` draws, with
-    ``x2h ~ H x1h``; returns (S, 3, 3) unit-norm H."""
-    q1n, c1, s1 = _norm_pts(p1[idx])
-    q2n, c2, s2 = _norm_pts(p2[idx])
-    ra, rb = _homography_rows(q1n[..., 0], q1n[..., 1], q2n[..., 0],
-                              q2n[..., 1])
-    A = torch.cat([ra, rb], dim=-2)                  # (S, 8, 9)
-    Hn = _nullvec(A).reshape(A.shape[:-2] + (3, 3))
-    H = _T_inv_of(c2, s2) @ Hn @ _T_of(c1, s1)
-    nrm = torch.sqrt(torch.sum(H * H, dim=(-2, -1), keepdim=True))
-    return H / torch.clamp(nrm, min=1e-30)
 
 
 def _homography_ls(p1, p2, w):
@@ -262,21 +231,6 @@ def _homography_ls(p1, p2, w):
     Hn = _gram_null(AtA).reshape(3, 3)
     H = _T_inv_of(c2, s2) @ Hn @ _T_of(c1, s1)
     return H / torch.clamp(torch.sqrt(torch.sum(H * H)), min=1e-30)
-
-
-def _transfer_inliers(H, p1, p2, valid, th2):
-    """Forward-transfer inlier mask per homography: ``|Hx1/z - x2|^2 <
-    th2``."""
-    y = _hom(p1) @ H.transpose(-2, -1)                # (..., N, 3)
-    zok = torch.abs(y[..., 2]) > 1e-8
-    zsafe = torch.where(zok, y[..., 2], torch.ones_like(y[..., 2]))
-    e = y[..., :2] / zsafe[..., None] - p2
-    d2 = torch.sum(e * e, dim=-1)
-    return zok & (d2 < th2) & valid
-
-
-def _transfer_support(H, p1, p2, valid, th2):
-    return _transfer_inliers(H, p1, p2, valid, th2).sum(dim=-1)
 
 
 def _decompose_homography(H):
@@ -393,52 +347,100 @@ def ransac_essential(p1, p2, valid, key, *, th_norm, n_samples=1024,
     cheirality; the winner is refit on its inliers and the refit kept
     unless it loses cheirality support.
     """
-    idx, idx_h = draw_positions(valid[None], [key],
-                                ((n_samples, 8), (h_samples, 4)))
-    return ransac_drawn(p1, p2, valid, idx[0], idx_h[0], th_norm=th_norm,
-                        E_seed=E_seed, rerank_k=rerank_k)
+    E, inl = ransac_lanes(
+        p1[None], p2[None], valid[None], th_norm, keys=[key],
+        n_samples=n_samples, h_samples=h_samples,
+        E_seed=None if E_seed is None else E_seed[None], rerank_k=rerank_k)
+    return E[0], inl[0], inl[0].sum()
 
 
 def ransac_drawn(p1, p2, valid, idx, idx_h, *, th_norm, E_seed=None,
                  rerank_k=RERANK_K):
-    """:func:`ransac_essential` on drawn sample positions ``idx (S, 8)``
-    and ``idx_h (H, 4)`` (``ops/draw.py:draw_positions``; callers with
-    several lanes draw them all at once).  Solves and votes in f64 (see
-    the module doc); E comes back in the points' dtype."""
+    """:func:`ransac_essential` on given sample positions ``idx (S, 8)``
+    and ``idx_h (H, 4)`` instead of a key."""
+    E, inl = ransac_lanes(
+        p1[None], p2[None], valid[None], th_norm,
+        positions=(idx[None], idx_h[None]), n_samples=idx.shape[0],
+        h_samples=idx_h.shape[0],
+        E_seed=None if E_seed is None else E_seed[None], rerank_k=rerank_k)
+    return E[0], inl[0], inl[0].sum()
+
+
+def candidate_pool(p1, p2, valid, th2, *, keys=None, positions=None,
+                   n_samples, h_samples, E_seed=None):
+    """The hypothesis pool of L lanes (f64 inputs, ``th2`` the squared
+    Sampson threshold, a 0-dim f64 tensor): (models (L, C, 3, 3), the
+    homography samples' transfer support (L, h_samples) int32), where the
+    models are each lane's projected minimal-sample E, its ``E_seed``
+    (optional (L, 3, 3)) and, with ``h_samples``, the 8 motions of its
+    rescued homography."""
+    E_cand, Hc = ransac_hypotheses(p1, p2, valid, keys, n_samples,
+                                   h_samples, positions)
+    parts = [E_cand]
+    if E_seed is not None:
+        parts.append(E_seed.to(F64)[:, None])
+    L = p1.shape[0]
+    if not h_samples:
+        return torch.cat(parts, dim=1), torch.zeros(
+            (L, 0), dtype=torch.int32, device=p1.device)
+    th2h = 4.0 * th2
+    hmask, sup_h = ransac_vote(Hc, p1, p2, valid, th2h, "transfer")
+    lanes = torch.arange(L, device=p1.device)
+    best = torch.argmax(sup_h, dim=1)
+    H_best, hinl = Hc[lanes, best], hmask[lanes, best]
+    H_ref = torch.stack([_homography_ls(p1[k], p2[k], hinl[k].to(F64))
+                         for k in range(L)])
+    _, sup_ref = ransac_vote(H_ref[:, None], p1, p2, valid, th2h,
+                             "transfer")
+    keep = (sup_ref[:, 0] >= sup_h[lanes, best])[:, None, None]
+    H_use = torch.where(keep, H_ref, H_best)
+    E_h = []
+    for k in range(L):
+        Rh, th_ = _decompose_homography(H_use[k])
+        E_h.append(_project_essential(_skew(th_) @ Rh))
+    parts.append(torch.stack(E_h))
+    return torch.cat(parts, dim=1), sup_h
+
+
+def ransac_lanes(p1, p2, valid, th_norm, *, keys=None, positions=None,
+                 n_samples, h_samples, E_seed=None, rerank_k=RERANK_K):
+    """:func:`ransac_essential` for L lanes of correspondences ``p1``,
+    ``p2`` (L, N, 2) with ``valid`` (L, N), lane ``l`` drawing from
+    ``keys[l]`` (or sampling ``positions``, ``(L, n_samples, 8)`` and
+    ``(L, h_samples, 4)``).  The minimal samples of every lane are solved
+    in one ``ransac_hypotheses`` launch and each vote over every lane is
+    one ``ransac_vote`` launch; the homography rescue, the cheirality
+    re-rank and the refit run lane by lane.  Solves and votes in f64 (see
+    the module doc).  Returns (E (L, 3, 3) in the points' dtype,
+    inlier_mask (L, N))."""
     dtype = p1.dtype
     p1, p2 = p1.to(F64), p2.to(F64)
-    E_cand = _project_essential(_eight_point_samples(p1, p2, idx))
-    if E_seed is not None:
-        E_cand = torch.cat([E_cand, E_seed[None].to(F64)], dim=0)
     th_norm = torch.as_tensor(th_norm, device=p1.device).to(F64)
     th2 = th_norm * th_norm
-
-    if idx_h.shape[0]:
-        Hc = _homography_samples(p1, p2, idx_h)
-        sup_h = _transfer_support(Hc, p1, p2, valid[None, :], 4.0 * th2)
-        H_best = Hc[torch.argmax(sup_h)]
-        hinl = _transfer_inliers(H_best, p1, p2, valid, 4.0 * th2)
-        H_ref = _homography_ls(p1, p2, hinl.to(p1.dtype))
-        sup_ref = _transfer_support(H_ref, p1, p2, valid, 4.0 * th2)
-        H_use = torch.where(sup_ref >= sup_h.max(), H_ref, H_best)
-        Rh, th_ = _decompose_homography(H_use)
-        E_h = _project_essential(_skew(th_) @ Rh)
-        E_cand = torch.cat([E_cand, E_h], dim=0)
-
-    inl = (sampson_distance(E_cand, p1, p2) < th2) & valid[None, :]
-    scores = inl.sum(dim=1)
-    # top-k with lower indices first among ties (jax.lax.top_k's order)
-    top = torch.sort(scores, descending=True, stable=True)[1][:rerank_k]
-    che = _cheirality_counts(E_cand[top], p1, p2, inl[top])
-    best = top[torch.argmax(che)]
-
-    E_ref = _project_essential(_eight_point(p1, p2, inl[best].to(F64)))
-    inl_ref = (sampson_distance(E_ref, p1, p2) < th2) & valid
-    che_ref = _cheirality_counts(E_ref, p1, p2, inl_ref)
-    better = che_ref >= che.max()
-    E_out = torch.where(better, E_ref, E_cand[best])
-    inl_out = torch.where(better, inl_ref, inl[best])
-    return E_out.to(dtype), inl_out, inl_out.sum()
+    models, _ = candidate_pool(p1, p2, valid, th2, keys=keys,
+                               positions=positions, n_samples=n_samples,
+                               h_samples=h_samples, E_seed=E_seed)
+    inl, scores = ransac_vote(models, p1, p2, valid, th2, "sampson")
+    L = p1.shape[0]
+    picks = []
+    for k in range(L):
+        # top-k with lower indices first among ties (jax.lax.top_k's order)
+        top = torch.sort(scores[k], descending=True,
+                         stable=True)[1][:rerank_k]
+        che = _cheirality_counts(models[k, top], p1[k], p2[k], inl[k, top])
+        best = top[torch.argmax(che)]
+        E_ref = _project_essential(_eight_point(p1[k], p2[k],
+                                                inl[k, best].to(F64)))
+        picks.append((best, che.max(), E_ref))
+    E_ref = torch.stack([E for _, _, E in picks])
+    inl_ref, _ = ransac_vote(E_ref[:, None], p1, p2, valid, th2, "sampson")
+    E_out, inl_out = [], []
+    for k, (best, che_max, E_r) in enumerate(picks):
+        che_ref = _cheirality_counts(E_r, p1[k], p2[k], inl_ref[k, 0])
+        better = che_ref >= che_max
+        E_out.append(torch.where(better, E_r, models[k, best]))
+        inl_out.append(torch.where(better, inl_ref[k, 0], inl[k, best]))
+    return torch.stack(E_out).to(dtype), torch.stack(inl_out)
 
 
 def recover_pose(E, p1, p2, inlier_mask):

@@ -24,7 +24,8 @@ functions take the reference's ``seed`` (``prng.key(seed)``), and every
 loop splits its keys where the reference's does, one key per lane, so a
 lane the port skips (an inactive window candidate, the refine of a pair
 whose RANSAC failed) disturbs no other lane's draws.  The RANSACs of a
-batch of lanes draw their samples in one ``draw_positions`` call.
+batch of lanes draw and solve their samples in one ``ransac_hypotheses``
+launch and vote in one ``ransac_vote`` launch a stage.
 `fused_initial_pose` and `fused_refine_window` are the two halves of
 `fused_process_frame` (before and after the keyframe gate) as public
 calls.
@@ -42,11 +43,10 @@ import math
 import torch
 
 from irotavg_tpu_torch import prng
-from irotavg_tpu_torch.geometry.essential import ransac_drawn, recover_pose
+from irotavg_tpu_torch.geometry.essential import ransac_lanes, recover_pose
 from irotavg_tpu_torch.matching.matchers import (
     _match_by_bow_core, _match_epipolar_core, _match_locally_core,
 )
-from irotavg_tpu_torch.ops.draw import draw_positions
 
 N_SAMPLES = 512        # minimal 8-point samples per RANSAC
 H_SAMPLES = 192        # 4-point homography samples per RANSAC
@@ -86,17 +86,14 @@ def _assignment_coords(m12, x1, y1, x2, y2, cam):
 
 def _ransac_lanes(p1, p2, valid, keys, th_norm, n_samples=N_SAMPLES):
     """RANSAC + cheirality for L lanes of correspondences ``p1``, ``p2``
-    (L, N, 2) with ``valid`` (L, N), lane ``l`` drawing from ``keys[l]``:
-    every lane's samples in one :func:`draw_positions` call, then the
-    solves lane by lane.  Returns (E, R, t, n_che, pose_mask) with
-    leading L."""
-    idx, idx_h = draw_positions(valid, keys, ((n_samples, 8),
-                                              (H_SAMPLES, 4)))
-    out = []
-    for k in range(valid.shape[0]):
-        E, inl, _ = ransac_drawn(p1[k], p2[k], valid[k], idx[k], idx_h[k],
-                                 th_norm=th_norm)
-        out.append((E,) + tuple(recover_pose(E, p1[k], p2[k], inl)))
+    (L, N, 2) with ``valid`` (L, N), lane ``l`` drawing from ``keys[l]``
+    (``essential.ransac_lanes``: every lane's hypotheses in one launch,
+    every vote over the lanes in one), then ``recover_pose`` lane by
+    lane.  Returns (E, R, t, n_che, pose_mask) with leading L."""
+    Es, inls = ransac_lanes(p1, p2, valid, th_norm, keys=keys,
+                            n_samples=n_samples, h_samples=H_SAMPLES)
+    out = [(Es[k],) + tuple(recover_pose(Es[k], p1[k], p2[k], inls[k]))
+           for k in range(valid.shape[0])]
     return tuple(torch.stack(v) for v in zip(*out))
 
 

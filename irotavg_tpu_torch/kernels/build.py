@@ -7,8 +7,9 @@ plain C interface:
          -Xptxas -v -shared -Xcompiler -fPIC \
          -o _build/lib<name>_<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt.  The build goes to ``kernels/_build/`` (git-ignored).
+The library name carries a hash of the source, of the ``csrc/`` headers it
+includes (``#include "name.cuh"``, followed into the headers' own
+includes) and of the flags, so an edited source or header is rebuilt.  The build goes to ``kernels/_build/`` (git-ignored).
 A failed build raises with nvcc's stderr; there is no fallback.  ptxas's
 report of each kernel's registers, shared memory and spills (``-Xptxas
 -v``) is kept in ``ptxas_report``.
@@ -20,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,10 +50,26 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(path: str, seen: set[str]) -> bytes:
+    """The bytes of ``path`` followed by those of each ``csrc/`` file it
+    includes with quotes, recursively, each once."""
+    seen.add(path)
+    with open(path, "rb") as fh:
+        src = fh.read()
+    out = [src]
+    for inc in _INCLUDE.findall(src):
+        dep = os.path.join(CSRC, inc.decode())
+        if dep not in seen and os.path.exists(dep):
+            out.append(_source_bytes(dep, seen))
+    return b"".join(out)
+
+
 def library_path(name: str) -> str:
     """Path of the built library for ``csrc/<name>.cu`` (hash-named)."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        src = fh.read()
+    src = _source_bytes(os.path.join(CSRC, f"{name}.cu"), set())
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
 

@@ -194,6 +194,7 @@ def draw_launcher(valid, keys, shapes):
                                    f"error {err}")
             draw_positions.launches += 1
 
+    launch.tensors = (valid, out)   # what ``calls`` points at
     return launch, _split_out(out, shapes)
 
 

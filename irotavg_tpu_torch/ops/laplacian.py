@@ -335,6 +335,7 @@ def laplacian_matvec_launcher(x, c, plan: MatvecPlan):
             _run("laplacian_matvec", fn, args)
             laplacian_matvec.launches += 1
 
+    launch.tensors = (x, c, y, plan)   # what ``groups`` points at
     return launch, y
 
 
@@ -379,6 +380,7 @@ def laplacian_assemble_launcher(coef, plan: DensePlan, ridge=0.0):
         _run("laplacian_assemble", fn, args)
         laplacian_assemble.launches += 1
 
+    launch.tensors = (coef, out, plan)   # what ``args`` points at
     return launch, out
 
 

@@ -133,6 +133,7 @@ def segment_sum_launcher(v, plan: SegmentPlan):
                                f"{err}")
         segment_sum.launches += 1
 
+    launch.tensors = (v, out, plan)   # what ``args`` points at
     return launch, out
 
 

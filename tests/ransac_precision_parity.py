@@ -1,21 +1,19 @@
-"""How often the port decides as the JAX package, with RANSAC's solves in
-f64 (the port's route) and in f32 (the JAX package's precision), on the
-CPU with the same keys.
+"""How often the port decides as the JAX package on the CPU with the same
+keys (RANSAC solved in f64, the port's route; its minimal samples and
+votes are f64 kernels, so no f32 route is left to compare).
 
 Not a test (pytest does not collect it): run it as a script from the
 repo root,
 
     python tests/ransac_precision_parity.py [--jax_op_by_op]
 
-For each route it runs the fused programs' parity calls of
-``test_torch_fused_keys.py`` (initial poses, refines, window candidates,
-loop verifications, pair estimates) and the per-keyframe slice of
-``test_torch_slice.py``, and prints, per group, the calls whose matched
-rows (the final assignment) equal the JAX package's, and for the slice
-the kept frames, the connected view pairs, and the connections whose
-inlier pairs equal the reference's.  The f32 route runs the port's
-``ransac_drawn`` and ``recover_pose`` with ``essential.F64`` set to
-float32 (every other step as shipped).
+It runs the fused programs' parity calls of ``test_torch_fused_keys.py``
+(initial poses, refines, window candidates, loop verifications, pair
+estimates) and the per-keyframe slice of ``test_torch_slice.py``, and
+prints, per group, the calls whose matched rows (the final assignment)
+equal the JAX package's, and for the slice the kept frames, the
+connected view pairs, and the connections whose inlier pairs equal the
+reference's.
 
 ``--jax_op_by_op`` adds the reference's own spread: the initial poses of
 ``test_torch_fused_keys.py`` by the JAX package run as one compiled
@@ -32,11 +30,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import conftest  # noqa: E402,F401  (the test harness's CPU / x64 setup)
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
 
 import test_torch_fused_keys as fk  # noqa: E402
 import test_torch_slice as sl  # noqa: E402
-from irotavg_tpu_torch.geometry import essential  # noqa: E402
 
 GROUPS = (("initial poses", fk.test_fused_initial_pose_draws_like_jax),
           ("refines + window candidates",
@@ -106,14 +102,10 @@ def main():
               f"calls) {jax_spread(scene)}",
               flush=True)
     sequence = sl.sequence._fixture_function()
-    for label, dtype in (("f64 solves (the port)", torch.float64),
-                         ("f32 solves", torch.float32)):
-        essential.F64 = dtype
-        print(label)
-        for name, v in fused_rows(scene).items():
-            print(f"  {name}: {v}")
-        print(f"  slice: {slice_pairs(sequence)}", flush=True)
-    essential.F64 = torch.float64
+    print("f64 solves (the port)")
+    for name, v in fused_rows(scene).items():
+        print(f"  {name}: {v}")
+    print(f"  slice: {slice_pairs(sequence)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -4,15 +4,16 @@
     python3 tools/ransac_replay.py [--out DIR] [--dump N]
 
 Runs phase 3 (the port's ``irotavg`` CLI on 150 rendered KITTI-sized
-frames) on the card with ``geometry/fused.py``'s RANSAC wrapped: each call
-runs on the card, then again on the CPU with the same inputs and the same
-drawn positions, and the two inlier masks are compared.  Prints the number
-of calls and of calls whose masks differ; the first ``--dump`` differing
-calls are saved as ``DIR/mismatch_<call>.npz`` (``p1, p2, valid, idx,
-idx_h, th``) with a line each naming the first stage that differs (the
-minimal-sample hypotheses, the homography support, the Sampson scores, the
-re-rank, the winner) and whether the winner's minimal sample drew a
-correspondence twice.  Needs a card; about five minutes on one H100.
+frames) on the card with ``geometry/fused.py``'s RANSAC wrapped: each batch
+of lanes runs on the card, then again on the CPU with the same inputs and
+the same keys, and each lane's inlier masks are compared.  Prints the
+number of RANSAC calls (lanes) and of calls whose masks differ; the first
+``--dump`` differing calls are saved as ``DIR/mismatch_<call>.npz`` (``p1,
+p2, valid, key, th``) with a line each naming the first stage that differs
+(the minimal-sample hypotheses, the homography support, the Sampson
+scores, the re-rank, the winner) and whether the winner's minimal sample
+drew a correspondence twice.  Needs a card; about five minutes on one
+H100.
 """
 
 from __future__ import annotations
@@ -30,33 +31,33 @@ import numpy as np  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def stages(p1, p2, valid, idx, idx_h, th_norm):
-    """The intermediate results of ``essential.ransac_drawn``, on the
-    device of the inputs, moved to the CPU."""
+def stages(p1, p2, valid, key, th_norm):
+    """The intermediate results of one lane of ``essential.ransac_lanes``
+    (with ``fused.py``'s sample counts), on the device of the inputs,
+    moved to the CPU."""
     import torch
 
     from irotavg_tpu_torch.geometry import essential as te
+    from irotavg_tpu_torch.geometry import fused
+    from irotavg_tpu_torch.ops import draw, ransac
 
     f64 = torch.float64
-    p1, p2 = p1.to(f64), p2.to(f64)
+    p1, p2, valid = p1.to(f64)[None], p2.to(f64)[None], valid[None]
     th2 = torch.as_tensor(th_norm, device=p1.device).to(f64) ** 2
-    E_min = te._project_essential(te._eight_point_samples(p1, p2, idx))
-    Hc = te._homography_samples(p1, p2, idx_h)
-    sup_h = te._transfer_support(Hc, p1, p2, valid[None, :], 4.0 * th2)
-    H_best = Hc[torch.argmax(sup_h)]
-    hinl = te._transfer_inliers(H_best, p1, p2, valid, 4.0 * th2)
-    H_ref = te._homography_ls(p1, p2, hinl.to(f64))
-    sup_ref = te._transfer_support(H_ref, p1, p2, valid, 4.0 * th2)
-    Rh, th_ = te._decompose_homography(
-        torch.where(sup_ref >= sup_h.max(), H_ref, H_best))
-    E = torch.cat([E_min, te._project_essential(te._skew(th_) @ Rh)])
-    inl = (te.sampson_distance(E, p1, p2) < th2) & valid[None]
-    scores = inl.sum(1)
+    E, sup_h = te.candidate_pool(p1, p2, valid, th2, keys=[key],
+                                 n_samples=fused.N_SAMPLES,
+                                 h_samples=fused.H_SAMPLES)
+    inl, scores = ransac.ransac_vote(E, p1, p2, valid, th2, "sampson")
+    E, inl, scores = E[0], inl[0], scores[0]
     top = torch.sort(scores, descending=True, stable=True)[1][:te.RERANK_K]
-    che = te._cheirality_counts(E[top], p1, p2, inl[top])
-    out = {"E_min": E_min, "sup_h": sup_h, "scores": scores, "top": top,
-           "che": che, "best": top[torch.argmax(che)]}
-    return {k: v.cpu() for k, v in out.items()}
+    che = te._cheirality_counts(E[top], p1[0], p2[0], inl[top])
+    idx, _ = draw.draw_positions_plain(valid.cpu(), [key],
+                                       ((fused.N_SAMPLES, 8),
+                                        (fused.H_SAMPLES, 4)))
+    out = {"E_min": E[:fused.N_SAMPLES], "sup_h": sup_h[0],
+           "scores": scores, "top": top, "che": che,
+           "best": top[torch.argmax(che)]}
+    return {k: v.cpu() for k, v in out.items()}, idx[0]
 
 
 def first_difference(card, cpu):
@@ -84,42 +85,46 @@ def main(argv=None) -> int:
 
     os.makedirs(args.out, exist_ok=True)
     card_name = cs.phase_device()
-    run = fused.ransac_drawn
+    run = fused.ransac_lanes
     tally = {"calls": 0, "differ": 0}
 
-    def replayed(p1, p2, valid, idx, idx_h, *, th_norm, **kw):
-        E, inl, n = run(p1, p2, valid, idx, idx_h, th_norm=th_norm, **kw)
-        host = [t.cpu() for t in (p1, p2, valid, idx, idx_h)]
+    def replayed(p1, p2, valid, th_norm, *, keys, **kw):
+        E, inl = run(p1, p2, valid, th_norm, keys=keys, **kw)
+        host = [t.cpu() for t in (p1, p2, valid)]
         th = torch.as_tensor(th_norm).cpu()
-        _, inl_cpu, _ = run(*host, th_norm=th, **kw)
-        tally["calls"] += 1
-        if not torch.equal(inl.cpu(), inl_cpu):
+        _, inl_cpu = run(*host, th, keys=keys, **kw)
+        for k, key in enumerate(keys):
+            tally["calls"] += 1
+            if torch.equal(inl[k].cpu(), inl_cpu[k]):
+                continue
             tally["differ"] += 1
-            if tally["differ"] <= args.dump:
-                card = stages(p1, p2, valid, idx, idx_h, th_norm)
-                cpu = stages(*host, th)
-                winners = [int(card["best"]), int(cpu["best"])]
-                twice = [w < len(host[3]) and len(set(host[3][w].tolist())) < 8
-                         for w in winners]
-                print("[replay] " + json.dumps({
-                    "call": tally["calls"], "valid": int(host[2].sum()),
-                    "first_difference": first_difference(card, cpu),
-                    "winners_card_cpu": winners,
-                    "winner_drew_a_correspondence_twice": twice}),
-                    file=sys.stderr, flush=True)
-                np.savez(os.path.join(args.out,
-                                      f"mismatch_{tally['calls']}.npz"),
-                         p1=host[0].numpy(), p2=host[1].numpy(),
-                         valid=host[2].numpy(), idx=host[3].numpy(),
-                         idx_h=host[4].numpy(), th=th.numpy())
-        return E, inl, n
+            if tally["differ"] > args.dump:
+                continue
+            lane = [t[k] for t in (p1, p2, valid)]
+            card, idx = stages(*lane, key, th_norm)
+            cpu, _ = stages(*(t.cpu() for t in lane), key, th)
+            winners = [int(card["best"]), int(cpu["best"])]
+            twice = [w < len(idx) and len(set(idx[w].tolist())) < 8
+                     for w in winners]
+            print("[replay] " + json.dumps({
+                "call": tally["calls"], "valid": int(host[2][k].sum()),
+                "first_difference": first_difference(card, cpu),
+                "winners_card_cpu": winners,
+                "winner_drew_a_correspondence_twice": twice}),
+                file=sys.stderr, flush=True)
+            np.savez(os.path.join(args.out,
+                                  f"mismatch_{tally['calls']}.npz"),
+                     p1=host[0][k].numpy(), p2=host[1][k].numpy(),
+                     valid=host[2][k].numpy(), key=np.array(key),
+                     th=th.numpy())
+        return E, inl
 
-    fused.ransac_drawn = replayed
+    fused.ransac_lanes = replayed
     cs.hold_to_cpu = lambda *a, **k: None       # report, do not hold
     try:
         cs.phase_main_path(card_name, args.out)
     finally:
-        fused.ransac_drawn = run
+        fused.ransac_lanes = run
     print(f"[replay] phase 3: {tally['calls']} RANSAC calls on the card, "
           f"{tally['differ']} with another inlier mask than the same call "
           f"on the CPU  ({card_name})")
