@@ -42,7 +42,11 @@ so with this flag the frames are extracted one at a time with
 rule; the frames and decisions are those of ``--prefetch 1``.
 ``--trace_dir DIR`` runs the frame loop inside ``torch.profiler`` (CPU
 activity, and CUDA activity on the card) and writes one TensorBoard /
-Chrome trace file, ``*.pt.trace.json``, under ``DIR``.
+Chrome trace file, ``*.pt.trace.json``, under ``DIR``; it holds the
+program's spans (``utils/timing.py:span``) as ranges: each stage of the
+timing line (``frame_creation``, ``frame_processing``, ``loop_closure``,
+``rotavg``) with ``engine.process_frame``, ``placerec.loop_closure``,
+``engine.rot_avg`` and the geometry and solver spans inside them.
 """
 
 from __future__ import annotations
@@ -274,17 +278,23 @@ def _loop_closure(vg, view_id: int, min_matches: int) -> bool:
     """The loop-closure block (src/IRotAvg.cpp:295-353): candidates ->
     consistency -> verify and connect each -> add the view to the
     database.  True when a new loop connection was made."""
-    candidates = vg.detect_loop_candidates(view_id)
-    consistent = vg.check_loop_consistency(candidates) if candidates else []
-    if consistent:
-        print(" * * * loop closure detected * * *\n")
-    new = False
-    for cand in consistent:
-        if vg.close_loop(view_id, cand, min_matches=min_matches):
-            print(f"   new connection: ( {cand}, {view_id} )")
-            new = True
-    vg.add_to_database(view_id)
-    return new
+    from irotavg_tpu_torch.utils.timing import span
+
+    with span("placerec.loop_closure", view=view_id) as sp:
+        candidates = vg.detect_loop_candidates(view_id)
+        consistent = (vg.check_loop_consistency(candidates) if candidates
+                      else [])
+        if consistent:
+            print(" * * * loop closure detected * * *\n")
+        connected = 0
+        for cand in consistent:
+            if vg.close_loop(view_id, cand, min_matches=min_matches):
+                print(f"   new connection: ( {cand}, {view_id} )")
+                connected += 1
+        vg.add_to_database(view_id)
+        sp.set(candidates=len(candidates), consistent=len(consistent),
+               connected=connected)
+    return connected > 0
 
 
 def _plot(vg, view_id: int, out_dir: str, name: str) -> None:

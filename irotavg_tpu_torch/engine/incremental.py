@@ -21,6 +21,12 @@ Differences from the reference, both deliberate:
   the reference's f64 one, 1e-10;
 * no padding buckets: eager PyTorch does not recompile per shape, and the
   reference's padding is masked out of every reduction.
+
+Under a profiler session each ``rot_avg`` runs inside a program span
+``engine.rot_avg`` (attributes ``view``, the newest view; ``win_size`` as
+asked; and for a solve that runs, ``n``, ``m`` and ``backend``), with the
+solver's ``solver.l1ra`` and ``solver.irls`` inside it
+(``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from irotavg_tpu_torch.device import SOLVER_DTYPE, pick_device
 from irotavg_tpu_torch.solver.graph import RotationGraph
 from irotavg_tpu_torch.solver.irls import Cost, IRLSConfig, irls
 from irotavg_tpu_torch.solver.l1ra import L1RAConfig, l1ra
+from irotavg_tpu_torch.utils.timing import span
 
 DENSE_N_MAX = 2048   # default largest node bucket of the dense solve
 CG_TOL = 1e-10       # the reference's CG tolerance for f64 solves
@@ -157,49 +164,55 @@ class IncrementalRotAvg:
         ``lazy=True`` the solved rotations stay a device tensor until the
         next access of :attr:`Q`.
         """
-        m_views = self.num_views
-        win_size = min(m_views, win_size)
-        if win_size < 2:
-            return None
-        lo = m_views - win_size
-        edge_ids = [e for j in range(lo, m_views) for e in self._edges_by_max[j]]
-        if len(edge_ids) < win_size:
-            return None
-        sub_edges = self.edges[edge_ids]
-        verts = np.unique(sub_edges)
-        if len(verts) < win_size:
-            return None
+        with span("engine.rot_avg", view=self.num_views - 1,
+                  win_size=win_size) as sp:
+            m_views = self.num_views
+            win_size = min(m_views, win_size)
+            if win_size < 2:
+                return None
+            lo = m_views - win_size
+            edge_ids = [e for j in range(lo, m_views)
+                        for e in self._edges_by_max[j]]
+            if len(edge_ids) < win_size:
+                return None
+            sub_edges = self.edges[edge_ids]
+            verts = np.unique(sub_edges)
+            if len(verts) < win_size:
+                return None
 
-        vfixed = (verts < lo) | self.fixed[verts]
-        order = np.concatenate([verts[vfixed], verts[~vfixed]])
-        f = int(vfixed.sum())
-        new_idx = np.empty(self.num_views, np.int64)
-        new_idx[order] = np.arange(len(order))
+            vfixed = (verts < lo) | self.fixed[verts]
+            order = np.concatenate([verts[vfixed], verts[~vfixed]])
+            f = int(vfixed.sum())
+            new_idx = np.empty(self.num_views, np.int64)
+            new_idx[order] = np.arange(len(order))
 
-        Q_sub = self.Q[order].copy()
-        if f == 0:
-            Q_sub[0] = (0.0, 0.0, 0.0, 1.0)
-            f = 1
-        m, n = len(edge_ids), len(order)
-        n_pad = _bucket(n)
-        backend = "cg" if n_pad > self.dense_n_max else "dense"
-        dev = self.device
-        Q_out, w, iters, score = _window_solve(
-            torch.as_tensor(new_idx[sub_edges], device=dev),
-            torch.as_tensor(self.QQ[edge_ids], dtype=SOLVER_DTYPE, device=dev),
-            torch.as_tensor(Q_sub, dtype=SOLVER_DTYPE, device=dev), f,
-            l1_iters=l1_iters, irls_iters=irls_iters, sigma=float(sigma),
-            change_th=float(change_th), cost=cost, backend=backend)
-        stats = {"m": m, "n": n, "f": f, "n_pad": n_pad, "backend": backend,
-                 "solve_dtype": "float64", "solved_views": order[f:],
-                 "irls_iters": iters, "score": score}
-        if lazy:
-            self._pending = (order, f, n, Q_out)
-            stats["lazy"] = True
+            Q_sub = self.Q[order].copy()
+            if f == 0:
+                Q_sub[0] = (0.0, 0.0, 0.0, 1.0)
+                f = 1
+            m, n = len(edge_ids), len(order)
+            n_pad = _bucket(n)
+            backend = "cg" if n_pad > self.dense_n_max else "dense"
+            sp.set(n=n, m=m, backend=backend)
+            dev = self.device
+            Q_out, w, iters, score = _window_solve(
+                torch.as_tensor(new_idx[sub_edges], device=dev),
+                torch.as_tensor(self.QQ[edge_ids], dtype=SOLVER_DTYPE,
+                                device=dev),
+                torch.as_tensor(Q_sub, dtype=SOLVER_DTYPE, device=dev), f,
+                l1_iters=l1_iters, irls_iters=irls_iters, sigma=float(sigma),
+                change_th=float(change_th), cost=cost, backend=backend)
+            stats = {"m": m, "n": n, "f": f, "n_pad": n_pad,
+                     "backend": backend, "solve_dtype": "float64",
+                     "solved_views": order[f:], "irls_iters": iters,
+                     "score": score}
+            if lazy:
+                self._pending = (order, f, n, Q_out)
+                stats["lazy"] = True
+                return stats
+            self._Q[order[f:]] = Q_out[f:n].cpu().numpy()
+            stats["weights"] = w.cpu().numpy()
             return stats
-        self._Q[order[f:]] = Q_out[f:n].cpu().numpy()
-        stats["weights"] = w.cpu().numpy()
-        return stats
 
     # -- persistence ---------------------------------------------------------
 

@@ -16,6 +16,10 @@ Port of ``irotavg_tpu/engine/viewgraph.py`` (orchestration of
   consistency (:948-1033, threshold 7), and ``close_loop``'s BoW match +
   RANSAC + refine.
 * ``rot_avg`` delegates to the incremental windowed solver.
+
+Under a profiler session ``process_frame`` runs inside a program span
+``engine.process_frame`` (attribute ``view``: the view id the frame
+takes if kept; ``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from irotavg_tpu_torch.geometry.twoview import RelativePose
 from irotavg_tpu_torch.matching.matchers import matches_to_pairs
 from irotavg_tpu_torch.placerec.bow import bow_score
 from irotavg_tpu_torch.placerec.database import ViewDatabase
+from irotavg_tpu_torch.utils.timing import span
 
 
 class FrameConnectionError(RuntimeError):
@@ -128,6 +133,10 @@ class ViewGraph:
     def process_frame(self, frame, win_size: int = 4) -> bool:
         """Ingest a frame; returns False when rejected (not a keyframe).
         Raises :class:`FrameConnectionError` where the reference exits."""
+        with span("engine.process_frame", view=self.num_views):
+            return self._process_frame(frame, win_size)
+
+    def _process_frame(self, frame, win_size: int) -> bool:
         if self.num_views == 0:
             self.frames.append(frame)
             self.ra.add_view()

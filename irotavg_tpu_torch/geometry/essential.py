@@ -34,6 +34,10 @@ same draws the f64 eager solves changed no mask in the card-against-CPU
 parity checks, where f32 solves on cuSOLVER and LAPACK changed the
 inlier mask of 4 and the cheirality count of 8 in 48 calls at the
 per-frame shape.
+
+Under a profiler session the kernel calls run inside program spans
+``geometry.ransac.kernels`` and the lane-by-lane loops inside
+``geometry.ransac.lanes`` (``utils/timing.py:span``).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from irotavg_tpu_torch.ops.ransac import (
     NULL_PICK, ransac_hypotheses, ransac_vote,
 )
+from irotavg_tpu_torch.utils.timing import span
 
 F64 = torch.float64
 DIST_THRESH = 50.0  # cv::recoverPose triangulated-distance cutoff
@@ -374,8 +379,9 @@ def candidate_pool(p1, p2, valid, th2, *, keys=None, positions=None,
     models are each lane's projected minimal-sample E, its ``E_seed``
     (optional (L, 3, 3)) and, with ``h_samples``, the 8 motions of its
     rescued homography."""
-    E_cand, Hc = ransac_hypotheses(p1, p2, valid, keys, n_samples,
-                                   h_samples, positions)
+    with span("geometry.ransac.kernels"):
+        E_cand, Hc = ransac_hypotheses(p1, p2, valid, keys, n_samples,
+                                       h_samples, positions)
     parts = [E_cand]
     if E_seed is not None:
         parts.append(E_seed.to(F64)[:, None])
@@ -384,20 +390,24 @@ def candidate_pool(p1, p2, valid, th2, *, keys=None, positions=None,
         return torch.cat(parts, dim=1), torch.zeros(
             (L, 0), dtype=torch.int32, device=p1.device)
     th2h = 4.0 * th2
-    hmask, sup_h = ransac_vote(Hc, p1, p2, valid, th2h, "transfer")
+    with span("geometry.ransac.kernels"):
+        hmask, sup_h = ransac_vote(Hc, p1, p2, valid, th2h, "transfer")
     lanes = torch.arange(L, device=p1.device)
     best = torch.argmax(sup_h, dim=1)
     H_best, hinl = Hc[lanes, best], hmask[lanes, best]
-    H_ref = torch.stack([_homography_ls(p1[k], p2[k], hinl[k].to(F64))
-                         for k in range(L)])
-    _, sup_ref = ransac_vote(H_ref[:, None], p1, p2, valid, th2h,
-                             "transfer")
+    with span("geometry.ransac.lanes"):
+        H_ref = torch.stack([_homography_ls(p1[k], p2[k], hinl[k].to(F64))
+                             for k in range(L)])
+    with span("geometry.ransac.kernels"):
+        _, sup_ref = ransac_vote(H_ref[:, None], p1, p2, valid, th2h,
+                                 "transfer")
     keep = (sup_ref[:, 0] >= sup_h[lanes, best])[:, None, None]
     H_use = torch.where(keep, H_ref, H_best)
     E_h = []
-    for k in range(L):
-        Rh, th_ = _decompose_homography(H_use[k])
-        E_h.append(_project_essential(_skew(th_) @ Rh))
+    with span("geometry.ransac.lanes"):
+        for k in range(L):
+            Rh, th_ = _decompose_homography(H_use[k])
+            E_h.append(_project_essential(_skew(th_) @ Rh))
     parts.append(torch.stack(E_h))
     return torch.cat(parts, dim=1), sup_h
 
@@ -420,26 +430,33 @@ def ransac_lanes(p1, p2, valid, th_norm, *, keys=None, positions=None,
     models, _ = candidate_pool(p1, p2, valid, th2, keys=keys,
                                positions=positions, n_samples=n_samples,
                                h_samples=h_samples, E_seed=E_seed)
-    inl, scores = ransac_vote(models, p1, p2, valid, th2, "sampson")
+    with span("geometry.ransac.kernels"):
+        inl, scores = ransac_vote(models, p1, p2, valid, th2, "sampson")
     L = p1.shape[0]
     picks = []
-    for k in range(L):
-        # top-k with lower indices first among ties (jax.lax.top_k's order)
-        top = torch.sort(scores[k], descending=True,
-                         stable=True)[1][:rerank_k]
-        che = _cheirality_counts(models[k, top], p1[k], p2[k], inl[k, top])
-        best = top[torch.argmax(che)]
-        E_ref = _project_essential(_eight_point(p1[k], p2[k],
-                                                inl[k, best].to(F64)))
-        picks.append((best, che.max(), E_ref))
+    with span("geometry.ransac.lanes"):
+        for k in range(L):
+            # top-k with lower indices first among ties (jax.lax.top_k's
+            # order)
+            top = torch.sort(scores[k], descending=True,
+                             stable=True)[1][:rerank_k]
+            che = _cheirality_counts(models[k, top], p1[k], p2[k],
+                                     inl[k, top])
+            best = top[torch.argmax(che)]
+            E_ref = _project_essential(_eight_point(p1[k], p2[k],
+                                                    inl[k, best].to(F64)))
+            picks.append((best, che.max(), E_ref))
     E_ref = torch.stack([E for _, _, E in picks])
-    inl_ref, _ = ransac_vote(E_ref[:, None], p1, p2, valid, th2, "sampson")
+    with span("geometry.ransac.kernels"):
+        inl_ref, _ = ransac_vote(E_ref[:, None], p1, p2, valid, th2,
+                                 "sampson")
     E_out, inl_out = [], []
-    for k, (best, che_max, E_r) in enumerate(picks):
-        che_ref = _cheirality_counts(E_r, p1[k], p2[k], inl_ref[k, 0])
-        better = che_ref >= che_max
-        E_out.append(torch.where(better, E_r, models[k, best]))
-        inl_out.append(torch.where(better, inl_ref[k, 0], inl[k, best]))
+    with span("geometry.ransac.lanes"):
+        for k, (best, che_max, E_r) in enumerate(picks):
+            che_ref = _cheirality_counts(E_r, p1[k], p2[k], inl_ref[k, 0])
+            better = che_ref >= che_max
+            E_out.append(torch.where(better, E_r, models[k, best]))
+            inl_out.append(torch.where(better, inl_ref[k, 0], inl[k, best]))
     return torch.stack(E_out).to(dtype), torch.stack(inl_out)
 
 

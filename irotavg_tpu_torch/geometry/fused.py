@@ -34,6 +34,12 @@ The offline pipeline's functions (`fused_flow`, `fused_pair_estimate`)
 take P independent frame pairs: their local matching is one batched
 launch with a column frame per lane, and so is the refine of the pairs
 that reach it.
+
+Under a profiler session each RANSAC batch (:func:`_ransac_lanes`) runs
+inside a program span ``geometry.ransac`` (attribute ``lanes``), the
+initial-pose search inside ``geometry.initial_pose`` (``trials``) and
+the post-gate part inside ``geometry.refine_window`` (``iters``, the
+refine iterations of the pose and the window walk); ``utils/timing.py``.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from irotavg_tpu_torch.geometry.essential import ransac_lanes, recover_pose
 from irotavg_tpu_torch.matching.matchers import (
     _match_by_bow_core, _match_epipolar_core, _match_locally_core,
 )
+from irotavg_tpu_torch.utils.timing import span
 
 N_SAMPLES = 512        # minimal 8-point samples per RANSAC
 H_SAMPLES = 192        # 4-point homography samples per RANSAC
@@ -90,11 +97,15 @@ def _ransac_lanes(p1, p2, valid, keys, th_norm, n_samples=N_SAMPLES):
     (``essential.ransac_lanes``: every lane's hypotheses in one launch,
     every vote over the lanes in one), then ``recover_pose`` lane by
     lane.  Returns (E, R, t, n_che, pose_mask) with leading L."""
-    Es, inls = ransac_lanes(p1, p2, valid, th_norm, keys=keys,
-                            n_samples=n_samples, h_samples=H_SAMPLES)
-    out = [(Es[k],) + tuple(recover_pose(Es[k], p1[k], p2[k], inls[k]))
-           for k in range(valid.shape[0])]
-    return tuple(torch.stack(v) for v in zip(*out))
+    L = valid.shape[0]
+    with span("geometry.ransac", lanes=L):
+        Es, inls = ransac_lanes(p1, p2, valid, th_norm, keys=keys,
+                                n_samples=n_samples, h_samples=H_SAMPLES)
+        with span("geometry.ransac.lanes"):
+            out = [(Es[k],) + tuple(recover_pose(Es[k], p1[k], p2[k],
+                                                 inls[k]))
+                   for k in range(L)]
+        return tuple(torch.stack(v) for v in zip(*out))
 
 
 def _flip_assignment(m12_cp, n_prev):
@@ -198,48 +209,52 @@ def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, key, min_inliers,
     n_che, m12, local_rad, rel_valid, accepted); the pose maps previous
     -> current.
     """
-    desc_c, valid_c, oct_c, x_c, y_c = fc
-    desc_p, valid_p, oct_p, x_p, y_p = fp
-    dev = x_c.device
-    f32 = torch.float32
-    rad = 2.0 * float(local_rad0)
-    local_rad = torch.tensor(float(local_rad0), dtype=f32, device=dev)
-    E = torch.eye(3, dtype=f32, device=dev)
-    R = torch.eye(3, dtype=f32, device=dev)
-    t = torch.zeros(3, dtype=f32, device=dev)
-    n_che = 0
-    m12_best = torch.full(x_c.shape, -1, dtype=torch.int64, device=dev)
-    valid_rel = False
-    accepted = False
-    for _ in range(max_trials):
-        m12 = _match_locally_core(desc_c, valid_c, oct_c, x_c, y_c,
-                                  desc_p, valid_p, oct_p, x_p, y_p,
-                                  rad, nnratio)
-        matched = m12 >= 0
-        j = m12.clamp(min=0)
-        count = int(matched.sum())
-        if count > 0:
-            local_rad = _mean_disp(x_c, y_c, x_p[j], y_p[j], matched)
-        rad = float(torch.tensor(rad, dtype=f32) * 1.25)   # in f32
-        if count <= 4:
-            # too few: local_rad = 1 fails the keyframe gate downstream;
-            # the previous trial's pose is kept
-            local_rad = torch.ones((), dtype=f32, device=dev)
-            accepted = False
-            break
-        # pose: previous -> current, so frame-1 coordinates come via m12
-        key, sub = prng.split(key)
-        p1 = _norm_coords(x_p[j], y_p[j], cam)
-        p2 = _norm_coords(x_c, y_c, cam)
-        E, R, t, n_new, pose_mask = (a[0] for a in _ransac_lanes(
-            p1[None], p2[None], matched[None], [sub], th_norm, n_samples))
-        n_che = int(n_new)
-        valid_rel = n_che > 6
-        accepted = valid_rel and n_che > min_inliers
-        m12_best = (torch.where(pose_mask, m12, torch.full_like(m12, -1))
-                    if accepted else m12)
-        if accepted:
-            break
+    with span("geometry.initial_pose") as sp:
+        desc_c, valid_c, oct_c, x_c, y_c = fc
+        desc_p, valid_p, oct_p, x_p, y_p = fp
+        dev = x_c.device
+        f32 = torch.float32
+        rad = 2.0 * float(local_rad0)
+        local_rad = torch.tensor(float(local_rad0), dtype=f32, device=dev)
+        E = torch.eye(3, dtype=f32, device=dev)
+        R = torch.eye(3, dtype=f32, device=dev)
+        t = torch.zeros(3, dtype=f32, device=dev)
+        n_che = 0
+        m12_best = torch.full(x_c.shape, -1, dtype=torch.int64, device=dev)
+        valid_rel = False
+        accepted = False
+        trials = 0
+        for _ in range(max_trials):
+            trials += 1
+            m12 = _match_locally_core(desc_c, valid_c, oct_c, x_c, y_c,
+                                      desc_p, valid_p, oct_p, x_p, y_p,
+                                      rad, nnratio)
+            matched = m12 >= 0
+            j = m12.clamp(min=0)
+            count = int(matched.sum())
+            if count > 0:
+                local_rad = _mean_disp(x_c, y_c, x_p[j], y_p[j], matched)
+            rad = float(torch.tensor(rad, dtype=f32) * 1.25)   # in f32
+            if count <= 4:
+                # too few: local_rad = 1 fails the keyframe gate downstream;
+                # the previous trial's pose is kept
+                local_rad = torch.ones((), dtype=f32, device=dev)
+                accepted = False
+                break
+            # pose: previous -> current, so frame-1 coordinates come via m12
+            key, sub = prng.split(key)
+            p1 = _norm_coords(x_p[j], y_p[j], cam)
+            p2 = _norm_coords(x_c, y_c, cam)
+            E, R, t, n_new, pose_mask = (a[0] for a in _ransac_lanes(
+                p1[None], p2[None], matched[None], [sub], th_norm, n_samples))
+            n_che = int(n_new)
+            valid_rel = n_che > 6
+            accepted = valid_rel and n_che > min_inliers
+            m12_best = (torch.where(pose_mask, m12, torch.full_like(m12, -1))
+                        if accepted else m12)
+            if accepted:
+                break
+        sp.set(trials=trials)
     return E, R, t, n_che, m12_best, local_rad, valid_rel, accepted
 
 
@@ -253,6 +268,15 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
     ``N_SAMPLES``, as the reference's) from the key's ``split(...)[1]``.
     Returns (E, R, t, n_che, m12, success) with leading axis K; the
     caller stops at the first failure."""
+    return _window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
+                           th_norm, key, min_matches, has_nodes,
+                           n_samples)[0]
+
+
+def _window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam, th_norm, key,
+                    min_matches, has_nodes, n_samples):
+    """:func:`fused_window_connect`; returns its result and the refine
+    iterations it ran."""
     desc_w, nodes_w, valid_w, angle_w, x_w, y_w, oct_w = fw
     x2, y2 = f2[4], f2[5]
     K = desc_w.shape[0]
@@ -264,6 +288,7 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
     n = torch.zeros(K, dtype=torch.int64, device=dev)
     m12 = torch.full(m12_0.shape, -1, dtype=torch.int64, device=dev)
     rel_ok = [False] * K
+    iters = 0
     keys = prng.split(key, K)
     # the reference computes and discards the inactive lanes
     lanes = [k for k in range(K) if active[k]]
@@ -285,7 +310,7 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
     if refine:
         sel = torch.tensor(refine, device=dev)
         cnt = (m12[sel] >= 0).sum(dim=1)
-        Er, Rr, tr, nr, m12r, _ = fused_refine(
+        Er, Rr, tr, nr, m12r, iters = fused_refine(
             tuple(a[sel] for a in fw), f2, E[sel], R[sel], t[sel], cnt,
             m12[sel], K_inv, sigma2, cam, th_norm,
             [prng.split(keys[k])[1] for k in refine],
@@ -293,7 +318,7 @@ def fused_window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam,
         E[sel], R[sel], t[sel], n[sel], m12[sel] = Er, Rr, tr, nr, m12r
     final = (m12 >= 0).sum(dim=1).tolist()
     success = [rel_ok[k] and final[k] >= min_matches for k in range(K)]
-    return E, R, t, n, m12, success
+    return (E, R, t, n, m12, success), iters
 
 
 def fused_initial_pose(fc, fp, local_rad0, cam, th_norm, seed, min_inliers,
@@ -332,27 +357,29 @@ def _refine_window_core(fc, fp, fw, m12_w2p, active_w, E0, R0, t0, m12_cp,
     walk over the stacked candidates ``fw``, each from the second key of
     one more ``split`` of ``key``, with ``n_samples`` RANSAC samples.
     Returns ``(refined, window)`` as :func:`fused_process_frame` does."""
-    x_p = fp[4]
-    m12_pc0 = _flip_assignment(m12_cp, x_p.shape[0])
-    cnt0 = (m12_pc0 >= 0).sum()
-    min_pairs = math.ceil(0.75 * min_matches)
-    key, sub = prng.split(key)
-    Er, Rr, tr, nr, m12_pc, _ = fused_refine(
-        tuple(a[None] for a in fp), fc[:6], E0[None], R0[None], t0[None],
-        cnt0[None], m12_pc0[None], K_inv, sigma2, cam, th_norm, [sub],
-        min_pairs, has_nodes, n_samples=n_samples)
-    refined = (Er[0], Rr[0], tr[0], nr[0], m12_pc[0])
+    with span("geometry.refine_window") as sp:
+        x_p = fp[4]
+        m12_pc0 = _flip_assignment(m12_cp, x_p.shape[0])
+        cnt0 = (m12_pc0 >= 0).sum()
+        min_pairs = math.ceil(0.75 * min_matches)
+        key, sub = prng.split(key)
+        Er, Rr, tr, nr, m12_pc, iters = fused_refine(
+            tuple(a[None] for a in fp), fc[:6], E0[None], R0[None], t0[None],
+            cnt0[None], m12_pc0[None], K_inv, sigma2, cam, th_norm, [sub],
+            min_pairs, has_nodes, n_samples=n_samples)
+        refined = (Er[0], Rr[0], tr[0], nr[0], m12_pc[0])
 
-    # pivot chaining: candidate row -> pivot row -> current column
-    j = m12_w2p.clamp(min=0)
-    m12_w2c = torch.where(m12_w2p >= 0, m12_pc[0][j],
-                          torch.full_like(m12_w2p, -1))
-    n_chain = (m12_w2c >= 0).sum(dim=1).tolist()
-    active = [bool(a) and c > 5 for a, c in zip(active_w, n_chain)]
-    key, sub = prng.split(key)
-    window = fused_window_connect(
-        fw, m12_w2c, active, fc[:6], K_inv, sigma2, cam, th_norm, sub,
-        min_matches, has_nodes, n_samples=n_samples)
+        # pivot chaining: candidate row -> pivot row -> current column
+        j = m12_w2p.clamp(min=0)
+        m12_w2c = torch.where(m12_w2p >= 0, m12_pc[0][j],
+                              torch.full_like(m12_w2p, -1))
+        n_chain = (m12_w2c >= 0).sum(dim=1).tolist()
+        active = [bool(a) and c > 5 for a, c in zip(active_w, n_chain)]
+        key, sub = prng.split(key)
+        window, window_iters = _window_connect(
+            fw, m12_w2c, active, fc[:6], K_inv, sigma2, cam, th_norm, sub,
+            min_matches, has_nodes, n_samples)
+        sp.set(iters=iters + window_iters)
     return refined, window
 
 

@@ -1,5 +1,6 @@
 # Copied from irotavg_tpu/solver/init.py (numpy only; deduplicate once irotavg_tpu imports lazily),
-# without its branch into irotavg_tpu.native: the port runs the Python sweep.
+# without its branch into irotavg_tpu.native: the port runs the Python sweep,
+# inside the program span ``solver.init_mst`` (utils/timing.py).
 """Spanning-tree initialisation (host-side).
 
 Mirrors ``init_mst`` (ral/l1_irls.cpp:915-979): sweep the edge list in order,
@@ -16,6 +17,8 @@ This is a one-shot, latency-bound graph traversal — it stays on host
 from __future__ import annotations
 
 import numpy as np
+
+from irotavg_tpu_torch.utils.timing import span
 
 
 class DisconnectedGraphError(RuntimeError):
@@ -55,6 +58,11 @@ def init_mst(Q, QQ, edges, f):
       f: number of leading rotations to never overwrite (must be >= 1).
     """
     assert f >= 1, "at least one rotation must be fixed"
+    with span("solver.init_mst"):
+        return _sweep(Q, QQ, edges, f)
+
+
+def _sweep(Q, QQ, edges, f):
     Q = np.array(Q, np.float64, copy=True)
     QQ = np.asarray(QQ, np.float64)
     edges = np.asarray(edges)

@@ -7,7 +7,9 @@ re-weighting with one of the 14 costs (the clamps of
 ral/l1_irls.cpp:617-727); right-multiplied retraction; stop when the mean
 free-node update norm is <= ``change_th``.  The ``lax.while_loop`` of the
 reference is a Python loop that reads the stopping test back each
-iteration.
+iteration.  Under a profiler session :func:`irls` runs inside a program
+span ``solver.irls`` (attribute ``iters``: the loop's steps;
+``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from irotavg_tpu_torch.solver.graph import (
     RotationGraph, graph_plans, incidence_matvec, incidence_rmatvec,
     laplacian_cg_solve, laplacian_cho_solve,
 )
+from irotavg_tpu_torch.utils.timing import span
 
 
 class Cost(enum.Enum):
@@ -193,15 +196,19 @@ def irls(g: RotationGraph, cfg: IRLSConfig = IRLSConfig(), weights=None):
     score = torch.full(batch, math.inf, dtype=g.dtype, device=dev)
     it = torch.zeros(batch, dtype=torch.int64, device=dev)
     active = (score > cfg.change_th) & (it < cfg.max_iters)
-    plan = _plans(g, cfg.backend)
-    while bool(active.any()):
-        Q2, w2, s2 = irls_step(dataclasses.replace(g, Q=Q), weights, cfg,
-                               plan)
-        Q = torch.where(active[..., None, None], Q2, Q)
-        weights = torch.where(active[..., None], w2, weights)
-        score = torch.where(active, s2, score)
-        it = it + active
-        active = (score > cfg.change_th) & (it < cfg.max_iters)
+    with span("solver.irls") as sp:
+        plan = _plans(g, cfg.backend)
+        steps = 0
+        while bool(active.any()):
+            Q2, w2, s2 = irls_step(dataclasses.replace(g, Q=Q), weights, cfg,
+                                   plan)
+            Q = torch.where(active[..., None, None], Q2, Q)
+            weights = torch.where(active[..., None], w2, weights)
+            score = torch.where(active, s2, score)
+            it = it + active
+            active = (score > cfg.change_th) & (it < cfg.max_iters)
+            steps += 1
+        sp.set(iters=steps)
     if batch:
         return Q, weights, it, score
     return Q, weights, int(it), float(score)

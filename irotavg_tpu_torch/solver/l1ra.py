@@ -10,7 +10,9 @@ lanes of one set of tensors with the same per-lane stopping tests
 (``sdg < PDTOL``, ``pd_iters`` Newton steps, a stuck line search), so a
 lane that stops early is frozen exactly as the vmapped loop freezes it.
 The Newton systems are a batched Cholesky (``backend="dense"``) or
-per-lane matrix-free CG (``"cg"``).
+per-lane matrix-free CG (``"cg"``).  Under a profiler session :func:`l1ra`
+runs inside a program span ``solver.l1ra`` (attribute ``iters``: the outer
+loop's steps; ``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from irotavg_tpu_torch.solver.graph import (
     laplacian_dense,
 )
 from irotavg_tpu_torch.solver.irls import _plans, free_mean
+from irotavg_tpu_torch.utils.timing import span
 
 PDTOL = 1e-3  # ral/l1_irls.cpp:231
 _ALPHA = 0.01
@@ -241,13 +244,17 @@ def l1ra(g: RotationGraph, cfg: L1RAConfig = L1RAConfig()):
     score = torch.full(batch, math.inf, dtype=g.dtype, device=dev)
     it = torch.zeros(batch, dtype=torch.int64, device=dev)
     active = (score >= cfg.change_th) & (it < cfg.max_iters)
-    plan = _plans(g, cfg.backend, lanes=3)
-    while bool(active.any()):
-        Q2, s2 = l1ra_step(dataclasses.replace(g, Q=Q), cfg, plan)
-        Q = torch.where(active[..., None, None], Q2, Q)
-        score = torch.where(active, s2, score)
-        it = it + active
-        active = (score >= cfg.change_th) & (it < cfg.max_iters)
+    with span("solver.l1ra") as sp:
+        plan = _plans(g, cfg.backend, lanes=3)
+        steps = 0
+        while bool(active.any()):
+            Q2, s2 = l1ra_step(dataclasses.replace(g, Q=Q), cfg, plan)
+            Q = torch.where(active[..., None, None], Q2, Q)
+            score = torch.where(active, s2, score)
+            it = it + active
+            active = (score >= cfg.change_th) & (it < cfg.max_iters)
+            steps += 1
+        sp.set(iters=steps)
     if batch:
         return Q, it, score
     return Q, int(it), float(score)
