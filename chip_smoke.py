@@ -67,7 +67,22 @@ prints no result line):
    correspondence twice), timed at the engine's, ``find_relative_pose``'s
    and the offline chunk's shapes beside their bounds, the plain
    versions on the card, ``torch.linalg.svd`` of the same designs and the
-   eager Sampson composition they replaced.
+   eager Sampson composition they replaced.  Then RANSAC's five tail
+   kernels (``csrc/ransac_tail.cu``: the homography refit, the pool's
+   8 motions, the cheirality re-rank, the 8-point refit, the refit's
+   check with the pose) at the same cases, each step fed the card's
+   outputs of the steps before and held to its plain version on the same
+   inputs moved to the CPU (decisions equal, f64 outputs within
+   ``TAIL_MAX_DIFF``; the line says how many were bit-identical), timed
+   beside its bound and its plain version on the card, a whole RANSAC
+   call against the lane-by-lane route it replaced
+   (``tests/ransac_lane_oracle.py``), and RANSAC batches of 1, 3 and 8
+   lanes with no device-to-host copy and no solver-library kernel
+   (``ransac_call_check``: the sync debug mode "error" and a CUDA
+   profiler session).  In every CLI run below each RANSAC batch runs
+   under the sync debug mode "error", and the first
+   ``RANSAC_PROFILED_CALLS`` are traced for copies and solver kernels
+   (``RANSAC_CALLS``).
 3. main path — renders the first 150 frames of a one-lap synthetic
    KITTI-sized sequence (1241x376, KITTI 00 intrinsics, 300 frames a lap)
    with numpy, writes them as PGM with a GT file and an ORB-SLAM YAML
@@ -169,7 +184,8 @@ SIFT) counts the launches of ``segment_sum``, ``laplacian_matvec`` and
 ``laplacian_assemble`` from 0 and fails if it launched a kernel of its
 backend no time (``DENSE_PATH``, ``CG_PATH``); every CLI run counts
 RANSAC's kernels the same way and fails unless it launched ``ransac_hyp``
-and ``ransac_vote`` and no ``threefry_draw`` (``RANSAC_LAUNCHES``).
+and ``ransac_vote``, the five tail kernels and no ``threefry_draw``
+(``RANSAC_LAUNCHES``).
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -251,18 +267,18 @@ RESUME_AT = 75
 CPU_RMSE_TOL_DEG = 1e-6
 # phase 3 with per-frame extraction (``--prefetch 1``): the card's batched
 # extraction must give the same
-PER_FRAME_PHASE3 = {"keyframes": 150, "rmse": 0.45808474775435054,
+PER_FRAME_PHASE3 = {"keyframes": 150, "rmse": 0.45808474776391495,
                     "connections": 590,
                     "by_gate": {"none": 0, "node": 0, "local": 149,
                                 "epipolar": 0, "epipolar_nonode": 1352}}
 # phase 4's runs A (loop closure) and B (--no_loop_closure); loop edges
 # sorted
 LOOP_PHASE4 = {
-    "A": {"keyframes": 241, "rmse": 1.959817814054833, "connections": 1096,
+    "A": {"keyframes": 241, "rmse": 1.959817824668, "connections": 1096,
           "by_gate": {"none": 0, "node": 148, "local": 258, "epipolar": 2749,
                       "epipolar_nonode": 0},
           "loop_edges": 148, "loop_edge_digest": "b677225072244d11"},
-    "B": {"keyframes": 241, "rmse": 11.181975716911953, "connections": 948,
+    "B": {"keyframes": 241, "rmse": 11.181975737055277, "connections": 948,
           "by_gate": {"none": 0, "node": 0, "local": 258, "epipolar": 2150,
                       "epipolar_nonode": 0},
           "loop_edges": 0, "loop_edge_digest": "4f53cda18c2baa0c"}}
@@ -290,7 +306,7 @@ PORT_OFFLINE = {"keyframes": 241, "edges": 1089, "loop_edges": 135,
                 "loop_edge_digest": "9bd5dffe951b9f97",
                 "by_gate": {"none": 0, "node": 0, "local": 167,
                             "epipolar": 0, "epipolar_nonode": 863},
-                "rmse": 1.3867674306458573}
+                "rmse": 1.3867674306683442}
 # phase 10: SIFT agreement card vs CPU, the two-view tolerance, the CLI
 # run's frames and the kernel's symbol in the trace.  Every keypoint of
 # the CPU's is found by the card (NVIDIA H100 80GB HBM3): the detection
@@ -314,7 +330,7 @@ KERNEL_SYMBOL = "match_best2_kernel"
 # the sources of the port's hand-written kernels
 # (irotavg_tpu_torch/csrc/<name>.cu), one nvcc each
 KERNELS = ("match_best2", "segment_sum", "laplacian", "threefry_draw",
-           "ransac_hyp", "ransac_vote")
+           "ransac_hyp", "ransac_vote", "ransac_tail", "l1_decode")
 # the solver's kernels: segment_sum (ops/segment.py) and the fused
 # Laplacian matvec and assembly (ops/laplacian.py, csrc/laplacian.cu)
 SOLVER_KERNELS = ("segment_sum", "laplacian_matvec", "laplacian_assemble")
@@ -325,9 +341,14 @@ CG_PATH = ("segment_sum", "laplacian_matvec")
 # before the path runs (read at the end for the kernel report)
 SOLVER_LAUNCHES: dict[str, dict[str, int]] = {}
 # launches of RANSAC's kernels per CLI run, counted the same way: the
-# hypotheses and the vote (each must launch), and threefry_draw (off the
-# RANSAC path since the hypotheses kernel draws for itself: must not)
+# hypotheses, the vote and the five tail kernels (each must launch), and
+# threefry_draw (off the RANSAC path since the hypotheses kernel draws for
+# itself: must not)
 RANSAC_LAUNCHES: dict[str, dict[str, int]] = {}
+# per CLI run: RANSAC batches made, and the device-to-host copies and
+# solver-library kernels inside the traced ones (both must be 0; every
+# batch runs under the sync debug mode "error", so a read raises)
+RANSAC_CALLS: dict[str, dict[str, int]] = {}
 
 
 class SmokeError(RuntimeError):
@@ -1214,6 +1235,124 @@ RANSAC_PARITY_MIN_SHARE = 1.0
 RANSAC_PARITY_MAX_E_DIFF = 1e-7
 
 
+# L1-RA on the card (ops/l1decode.py) against the plain composition on
+# the CPU: (name, problem, dtype, backend, max_iters, largest |Q| gap); the
+# two differ only in the order of their sums, so the iterations are equal
+# and the rotations within rounding
+L1RA_CASES = (("golden_f64", "golden", "float64", "dense", 5, 1e-9),
+              ("golden_f32", "golden", "float32", "dense", 5, 1e-4),
+              ("synth0_f64", "synth0", "float64", "dense", 100, 1e-9),
+              ("synth1_f64", "synth1", "float64", "dense", 100, 1e-9),
+              ("synth2_f64", "synth2", "float64", "dense", 100, 1e-9),
+              ("synth0_cg_f64", "synth0", "float64", "cg", 100, 1e-9),
+              ("batch3_padded_f64", "batch3", "float64", "dense", 100, 1e-9))
+
+
+def l1ra_problems():
+    """The problems of ``L1RA_CASES`` on the CPU: the upstream golden
+    problem from its spanning tree, three chain-and-chord graphs with 20%
+    outlier edges, and those three padded into one batch of windows
+    (fixed views 1, 3, 2)."""
+    import numpy as np
+    import torch
+
+    from synth import make_problem
+
+    from irotavg_tpu_torch.solver.graph import RotationGraph
+    from irotavg_tpu_torch.solver.init import init_mst
+    from irotavg_tpu_torch.solver.io import read_problem
+
+    p = read_problem(os.path.join(HERE, "tests", "data",
+                                  "ravg_input.txt.gz"))
+    Q0 = init_mst(p["Q"], p["QQ"], p["edges"], max(p["n_abs_given"],
+                                                   p["f"]))
+    out = {"golden": RotationGraph.create(p["edges"], p["QQ"], Q0,
+                                          f=max(p["f"], 1),
+                                          dtype=torch.float64)}
+    syn = []
+    for s in range(3):
+        pr = make_problem(n=60 + 10 * s, extra_edges=90, noise_deg=2.0,
+                          outlier_frac=0.2, seed=s, window_chords=3)
+        Qi = init_mst(np.tile([0, 0, 0, 1.0], (len(pr["Q_gt"]), 1)),
+                      pr["QQ"], pr["edges"], 1)
+        syn.append(RotationGraph.create(pr["edges"], pr["QQ"], Qi, f=1,
+                                        dtype=torch.float64))
+        out[f"synth{s}"] = syn[-1]
+    pads = [g.pad_to(max(g.m for g in syn), max(g.n for g in syn))
+            for g in syn]
+    out["batch3"] = RotationGraph(
+        edges=torch.stack([g.edges for g in pads]),
+        QQ=torch.stack([g.QQ for g in pads]),
+        Q=torch.stack([g.Q for g in pads]), f=torch.tensor([1, 3, 2]),
+        edge_mask=torch.stack([g.edge_mask for g in pads]),
+        node_mask=torch.stack([g.node_mask for g in pads]))
+    return out
+
+
+def _graph_on(g, dev, dtype):
+    import dataclasses
+
+    return dataclasses.replace(
+        g, edges=g.edges.to(dev), QQ=g.QQ.to(dev, dtype),
+        Q=g.Q.to(dev, dtype),
+        f=g.f if isinstance(g.f, int) else g.f.to(dev),
+        edge_mask=g.edge_mask.to(dev), node_mask=g.node_mask.to(dev))
+
+
+def phase_l1ra_kernels(card):
+    """L1-RA's kernels (``csrc/l1_decode.cu``) at ``L1RA_CASES``: each
+    solve on the card against the plain composition on the CPU (equal
+    iteration counts, rotations within the case's gap), and its time on
+    the card beside the composition's on the card (median of 3)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from irotavg_tpu_torch.ops.l1decode import L1Kernels
+    from irotavg_tpu_torch.solver.irls import _plans
+
+    l1 = importlib.import_module("irotavg_tpu_torch.solver.l1ra")
+    dev = torch.device("cuda")
+    problems = l1ra_problems()
+    rows = []
+
+    def timed(fn):
+        ts, out = [], None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return out, statistics.median(ts)
+
+    for name, prob, dt, backend, iters, gap in L1RA_CASES:
+        dtype = getattr(torch, dt)
+        cfg = l1.L1RAConfig(max_iters=iters, backend=backend)
+        gc = _graph_on(problems[prob], "cpu", dtype)
+        gd = _graph_on(problems[prob], dev, dtype)
+        Qc, itc, _ = l1.l1ra(gc, cfg)
+        L1Kernels.launches = 0
+        (Qd, itd, _), t_k = timed(lambda: l1.l1ra(gd, cfg))
+        launches = L1Kernels.launches
+        plan = _plans(gd, backend, lanes=3)
+        _, t_c = timed(lambda: l1._l1ra_plain(gd, cfg, plan))
+        itc = np.asarray(itc).tolist()
+        itd = np.asarray(itd.cpu() if torch.is_tensor(itd) else itd).tolist()
+        dq = (Qd.cpu() - Qc).abs().max().item()
+        print(f"[l1ra] {name}: n {gc.n} m {gc.m} iterations CPU {itc} card "
+              f"{itd}, max |dQ| {dq:.3e} (gap {gap:g}); kernels {t_k:.2f} "
+              f"ms, composition on the card {t_c:.2f} ms, {launches} "
+              f"launches over 3 solves  ({card})")
+        if itc != itd or not dq <= gap or launches == 0:
+            raise SmokeError(f"L1-RA kernels at {name}: iterations {itd} vs "
+                             f"{itc}, |dQ| {dq:.3e} > {gap:g}, or no launch")
+        rows.append({"case": name, "n": gc.n, "m": gc.m, "iters": itd,
+                     "max_dq": dq, "kernels_ms": t_k, "composition_ms": t_c})
+    return {"name": "l1_decode", "cases": rows}
+
+
 def draw_cases(dev, seed=0):
     """``(name, valid (L, N), keys, shapes)`` on ``dev`` for DRAW_CASES."""
     import torch
@@ -1534,6 +1673,218 @@ def _designs_on(p1, p2, valid, keys, shapes):
     return torch.cat(out)
 
 
+# -- phase 2, ransac_tail: RANSAC's tail for every lane -----------------------
+
+# the tail kernels, in the order a RANSAC call launches them
+TAIL_KERNELS = ("homography_refit", "homography_pool", "cheirality_rerank",
+                "essential_refit", "ransac_finish")
+# a tail kernel's f64 outputs may differ from its plain version's by this
+# much at most (its decisions not at all); the kernels are written to
+# equal them bit for bit, and the line says how many did
+TAIL_MAX_DIFF = 1e-12
+# lanes of the RANSAC batches checked for host reads and solver kernels
+RANSAC_CALL_LANES = (1, 3, 8)
+# kernel names of a linear-algebra library's routines (cuSOLVER, MAGMA)
+SOLVER_MARKS = ("cusolver", "syev", "gesvd", "jacobi", "potrf", "getrf",
+                "geqrf", "trsm", "trsv", "magma")
+# the first RANSAC calls of each CLI run traced for host reads and solver
+# kernels (every call runs under the sync debug mode "error")
+RANSAC_PROFILED_CALLS = 4
+
+
+def _cpu(a):
+    """``a`` (a tensor, a tuple of them, or anything else) on the CPU."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.cpu()
+    if isinstance(a, tuple):
+        return tuple(_cpu(x) for x in a)
+    return a
+
+
+def _held(name, got, ref, case):
+    """Max |difference| of the f64 outputs, after checking every other
+    output equal; raises beyond :data:`TAIL_MAX_DIFF`.  Returns (max
+    difference, bit-identical?)."""
+    import torch
+
+    worst, same = 0.0, True
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g = g.cpu()
+        if r.dtype == torch.float64:
+            same = same and _same_bits(g, r)
+            d = float((g - r).abs().max()) if r.numel() else 0.0
+            if not d <= TAIL_MAX_DIFF:
+                raise SmokeError(f"{name} output {i} departs from the plain "
+                                 f"version on {case} by {d:.3e}")
+            worst = max(worst, d)
+        elif not torch.equal(g.to(r.dtype), r):
+            raise SmokeError(f"{name} output {i} ({r.dtype}) != plain on "
+                             f"{case}: {int((g.to(r.dtype) != r).sum())} "
+                             f"of {r.numel()} entries differ")
+    return worst, same
+
+
+def ransac_call_check(fn, *args):
+    """``fn(*args)`` (one RANSAC batch) under the sync debug mode "error"
+    (a synchronising read raises) inside a CUDA profiler session: (its
+    result, device-to-host copies, kernels of a solver library)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from irotavg_tpu_torch.utils import timing
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    timing.clear_spans()
+    names = [e.name for e in prof.events()]
+    dtoh = sum("DtoH" in n for n in names)
+    solver = sum(any(m in n.lower() for m in SOLVER_MARKS) for n in names)
+    return out, dtoh, solver
+
+
+def phase_ransac_tail(card):
+    """The five tail kernels on the card against their plain versions on
+    the same inputs moved to the CPU at :func:`ransac_kernel_cases`, each
+    step fed the card's outputs of the steps before (decisions equal,
+    f64 outputs within :data:`TAIL_MAX_DIFF`); times at ``DRAW_TIMED``
+    beside the bound and the plain version on the card; a whole RANSAC
+    call against the lane-by-lane route it replaced
+    (``tests/ransac_lane_oracle.py``); and RANSAC batches of
+    :data:`RANSAC_CALL_LANES` lanes with no host read and no solver
+    kernel."""
+    import torch
+
+    from irotavg_tpu_torch import prng
+    from irotavg_tpu_torch.geometry import essential, fused
+    from irotavg_tpu_torch.ops import ransac
+    import ransac_lane_oracle as oracle
+
+    dev = _device(torch)
+    th = torch.tensor(float(np.float32(1.0 / KITTI_K[0])), dtype=torch.float64,
+                      device=dev)
+    th2, th2h = th * th, 4.0 * th * th
+    worst = dict.fromkeys(TAIL_KERNELS, 0.0)
+    exact = dict.fromkeys(TAIL_KERNELS, 0)
+    checks = dict.fromkeys(TAIL_KERNELS, 0)
+    timed = {k: {} for k in TAIL_KERNELS}
+    for case, p1, p2, valid, keys, pos, shapes in ransac_kernel_cases(dev):
+        (S, _), (Hs, _) = shapes
+        E_cand, Hc = ransac.ransac_hypotheses(p1, p2, valid, keys, S, Hs, pos)
+        hmask, sup_h = ransac.ransac_vote(Hc, p1, p2, valid, th2h, "transfer")
+        first = {}                   # each kernel's first arguments
+
+        def hold(kernel, args):
+            got = getattr(ransac, kernel)(*args)
+            ref = getattr(ransac, f"{kernel}_plain")(*_cpu(args))
+            d, same = _held(kernel, got if isinstance(got, tuple) else (got,),
+                            ref if isinstance(ref, tuple) else (ref,), case)
+            worst[kernel] = max(worst[kernel], d)
+            exact[kernel] += same
+            checks[kernel] += 1
+            first.setdefault(kernel, args)
+            return got
+
+        H_ref, hbest = hold("homography_refit", (Hc, hmask, sup_h, p1, p2))
+        _, sup_ref = ransac.ransac_vote(H_ref, p1, p2, valid, th2h,
+                                        "transfer")
+        pool = hold("homography_pool", (E_cand, None, Hc, hbest, sup_h,
+                                        H_ref, sup_ref))
+        if case == "engine_512x8_192x4":
+            hold("homography_pool", (E_cand, E_cand[:, 0], Hc, hbest, sup_h,
+                                     H_ref, sup_ref))
+        inl, scores = ransac.ransac_vote(pool, p1, p2, valid, th2, "sampson")
+        top, che = hold("cheirality_rerank", (pool, inl, scores, p1, p2,
+                                              essential.RERANK_K))
+        best, che_max, E_ref = hold("essential_refit", (top, che, inl, p1,
+                                                        p2))
+        inl_ref, _ = ransac.ransac_vote(E_ref, p1, p2, valid, th2, "sampson")
+        hold("ransac_finish", (E_ref, inl_ref, p1, p2, True,
+                               (pool, inl, best, che_max)))
+        hold("ransac_finish", (E_ref, inl_ref, p1, p2, False))
+        L, n = valid.shape
+        line = (f"[kernel] ransac_tail {case}: {L} lane(s) x {n} slots, pool "
+                f"{pool.shape[1]}: every tail kernel held to its plain "
+                f"version")
+        if case in DRAW_TIMED:
+            for kernel, args in first.items():
+                fn = getattr(ransac, kernel)
+                plain = getattr(ransac, f"{kernel}_plain")
+                k_ms = _time_ms(torch, lambda: fn(*args))
+                p_ms = _time_ms(torch, lambda: plain(*args), per_window=2,
+                                windows=3)
+                b_ms, b_by = ransac.bound_ms(ransac.tail_work(
+                    kernel, L, n, pool.shape[1], top.shape[1]))
+                timed[kernel][case] = {
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "bound_share": b_ms / k_ms,
+                    "library_ms": None}
+                line += (f"; {kernel} {k_ms:.4f} ms (bound {b_ms:.6f} ms, "
+                         f"{b_by}; plain {p_ms:.3f} ms)")
+            args = (p1.float(), p2.float(), valid, th.float())
+            kw = {"keys": keys, "n_samples": S, "h_samples": Hs}
+            new_ms = _time_ms(torch, lambda: essential.ransac_pose_lanes(
+                *args, **kw), per_window=10, windows=5)
+
+            def lane_loops():
+                E, m = oracle.ransac_lanes(*args, **kw)
+                return [oracle.recover_pose(E[k], args[0][k], args[1][k],
+                                            m[k]) for k in range(L)]
+
+            old_ms = _time_ms(torch, lane_loops, per_window=2, windows=3)
+            timed["ransac_finish"][case]["whole_call_ms"] = new_ms
+            timed["ransac_finish"][case]["lane_loops_call_ms"] = old_ms
+            line += (f"; a whole RANSAC call {new_ms:.3f} ms against "
+                     f"{old_ms:.3f} ms lane by lane")
+        print(f"{line}  ({card})")
+    summary = ", ".join(f"{k} {exact[k]}/{checks[k]} bit-identical (max "
+                        f"{worst[k]:.1e})" for k in TAIL_KERNELS)
+    print(f"[kernel] ransac_tail held to the plain versions: {summary}  "
+          f"({card})")
+    calls = {}
+    rng = np.random.default_rng(7)
+    for L in RANSAC_CALL_LANES:
+        p1, p2 = (torch.from_numpy(a).to(dev).float()
+                  for a in _case_points(rng, L, 2000))
+        valid = torch.from_numpy(rng.random((L, 2000)) < 0.6).to(dev)
+        keys = prng.split(prng.key(L), L)
+        before = ransac.tail_launches()
+        _, dtoh, solver = ransac_call_check(fused._ransac_lanes, p1, p2,
+                                            valid, keys, th.float())
+        launches = ransac.tail_launches() - before
+        calls[L] = {"dtoh": dtoh, "solver_kernels": solver,
+                    "tail_launches": launches}
+        print(f"[ransac] a RANSAC batch of {L} lane(s): {dtoh} device-to-host "
+              f"copies, {solver} solver kernels, {launches} tail launches  "
+              f"({card})")
+        if dtoh or solver or launches != len(TAIL_KERNELS):
+            raise SmokeError(f"a RANSAC batch of {L} lanes read the card "
+                             f"({dtoh}), ran a solver library ({solver}) or "
+                             f"launched {launches} tail kernels")
+    main = "engine_512x8_192x4"
+    return [{"name": k, "route": "cuda",
+             "source": "irotavg_tpu_torch/csrc/ransac_tail.cu",
+             "replaces": "the port's lane-by-lane loops after "
+                         "irotavg_tpu/geometry/essential.py:409 "
+                         "_homography_ls, :472 _decompose_homography, :543 "
+                         "_project_essential, :553 _cheirality_counts, :256 "
+                         "_eight_point, :713 recover_pose (no Pallas "
+                         "kernel)",
+             "max_abs_err": worst[k], "bit_identical": exact[k],
+             "checks": checks[k], **timed[k].get(main, {}),
+             "library_note": "none: the route it replaced was eager "
+                             "torch.linalg (cuSOLVER) lane by lane",
+             "cases": timed[k], "ransac_calls": calls}
+            for k in TAIL_KERNELS]
+
+
 def ransac_parity(card):
     """:data:`RANSAC_PARITY_CALLS` calls of ``ransac_essential`` (and
     ``recover_pose``) at phase 3's shape, each with its key, on the card
@@ -1768,7 +2119,31 @@ def _run_logged(main_fn, argv, out, name):
     or launched ``threefry_draw``."""
     import contextlib
 
+    from irotavg_tpu_torch.geometry import fused
     from irotavg_tpu_torch.ops import draw, match, ransac
+
+    run = fused._ransac_lanes
+    seen = {"calls": 0, "dtoh": 0, "solver_kernels": 0}
+
+    def checked(*args):
+        """Every RANSAC batch under the sync debug mode "error", the
+        first :data:`RANSAC_PROFILED_CALLS` traced as well (unless the run
+        holds a profiler session of its own, ``--trace_dir``: sessions do
+        not nest)."""
+        import torch
+
+        seen["calls"] += 1
+        if (seen["calls"] <= RANSAC_PROFILED_CALLS
+                and not torch.autograd._profiler_enabled()):
+            out, dtoh, solver = ransac_call_check(run, *args)
+            seen["dtoh"] += dtoh
+            seen["solver_kernels"] += solver
+            return out
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
 
     log_path = os.path.join(out, f"{name}.log")
     with open(log_path, "w", buffering=1) as fh:           # line-buffered
@@ -1776,27 +2151,38 @@ def _run_logged(main_fn, argv, out, name):
         draw.reset_launch_counts()
         ransac.reset_launch_counts()
         t0 = time.perf_counter()
-        with counting_solver(name), contextlib.redirect_stdout(fh):
-            rc = main_fn(argv)
+        fused._ransac_lanes = checked
+        try:
+            with counting_solver(name), contextlib.redirect_stdout(fh):
+                rc = main_fn(argv)
+        finally:
+            fused._ransac_lanes = run
         wall = time.perf_counter() - t0
         launches = match.best2.launches
         by_gate = dict(match.best2.launches_by_gate)
         RANSAC_LAUNCHES[name] = {
             "ransac_hypotheses": ransac.ransac_hypotheses.launches,
             "ransac_vote": ransac.ransac_vote.launches,
-            "threefry_draw": draw.draw_positions.launches}
+            "threefry_draw": draw.draw_positions.launches,
+            **{k: getattr(ransac, k).launches for k in TAIL_KERNELS}}
+        RANSAC_CALLS[name] = dict(seen)
     with open(log_path) as fh:
         log = fh.read()
     if rc != 0:
         raise SmokeError(f"{name} returned {rc}; log tail:\n" + log[-2000:])
     counts = RANSAC_LAUNCHES[name]
-    print(f"[ransac] {name}: launches {json.dumps(counts)}")
-    if counts["ransac_hypotheses"] <= 0 or counts["ransac_vote"] <= 0:
-        raise SmokeError(f"{name} never launched ransac_hyp or ransac_vote: "
+    print(f"[ransac] {name}: launches {json.dumps(counts)}; calls "
+          f"{json.dumps(seen)}")
+    if min(counts[k] for k in ("ransac_hypotheses", "ransac_vote")
+           + TAIL_KERNELS) <= 0:
+        raise SmokeError(f"{name} never launched one of RANSAC's kernels: "
                          f"{counts}")
     if counts["threefry_draw"]:
         raise SmokeError(f"{name} launched threefry_draw on the RANSAC path: "
                          f"{counts}")
+    if seen["dtoh"] or seen["solver_kernels"]:
+        raise SmokeError(f"{name}: a RANSAC call read the card or ran a "
+                         f"solver library: {seen}")
     return log, wall, launches, by_gate
 
 
@@ -3089,8 +3475,9 @@ def main(argv=None) -> int:
         kern = phase_kernels(card)
         seg = phase_segment_kernel(card)
         fused = phase_laplacian_kernels(card)
+        l1k = phase_l1ra_kernels(card)
         drawk = phase_draw_kernel(card)
-        ransack = phase_ransac_kernels(card)
+        ransack = phase_ransac_kernels(card) + phase_ransac_tail(card)
         main_launches, main_by_gate, phase3 = phase_main_path(card, args.out)
         frames.append(phase3[0])
         vocab = vocab_file(args.out)
@@ -3139,7 +3526,8 @@ def main(argv=None) -> int:
         by_path = {p: c[entry["name"]] for p, c in RANSAC_LAUNCHES.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    print(json.dumps({"kernels": [kern, seg] + fused + [drawk] + ransack}))
+    print(json.dumps({"kernels": [kern, seg] + fused + [l1k, drawk]
+                      + ransack}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -45,6 +45,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rank2.cuh"
 #include "threefry.cuh"
 
 constexpr int kMaxLanes = kDrawMaxLanes;
@@ -53,16 +54,9 @@ namespace {
 
 constexpr int kThreads = 64;
 constexpr int kMaxN = 57344;          // 224 KB of int32 cs
-constexpr int kMaxSweeps3 = 16;
 constexpr double kRankTol2 = 1e-20;
-constexpr double kJacobiTol = 1e-14;
-constexpr double kZeroTol2 = 1e-26;
 __constant__ double kNullPick[9] = {1.0, 2.0, 3.0, 4.0, 5.0,
                                     6.0, 7.0, 8.0, 9.0};
-
-__device__ __forceinline__ double clamp_min(double x, double m) {
-  return x < m ? m : x;
-}
 
 struct Hartley {
   double cx, cy, s;
@@ -167,71 +161,6 @@ __device__ __forceinline__ void times_t1_unit(double (*M)[3], double cx,
   for (int i = 1; i < 9; ++i) f = f + out[i] * out[i];
   const double nrm = clamp_min(sqrt(f), 1e-30);
   for (int i = 0; i < 9; ++i) out[i] = out[i] / nrm;
-}
-
-// E (row-major, 9) projected onto singular values (1, 1, 0) in place
-__device__ __forceinline__ void project_rank2(double* E) {
-  double b[3][3], w[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      b[i][j] = E[3 * i + j];
-      w[i][j] = i == j ? 1.0 : 0.0;
-    }
-  }
-  const int P[3] = {0, 0, 1}, Q[3] = {1, 2, 2};
-  for (int sweep = 0; sweep < kMaxSweeps3; ++sweep) {
-    bool moved = false;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int p = P[r], q = Q[r];
-      const double al = (b[0][p] * b[0][p] + b[1][p] * b[1][p])
-                        + b[2][p] * b[2][p];
-      const double be = (b[0][q] * b[0][q] + b[1][q] * b[1][q])
-                        + b[2][q] * b[2][q];
-      const double ga = (b[0][p] * b[0][q] + b[1][p] * b[1][q])
-                        + b[2][p] * b[2][q];
-      const bool lt = al < be;
-      const double lo = lt ? al : be, hi = lt ? be : al;
-      if (!(fabs(ga) > kJacobiTol * sqrt(al * be) && lo > kZeroTol2 * hi))
-        continue;
-      const double zeta = (be - al) / (2.0 * ga);
-      const double sgn = zeta >= 0.0 ? 1.0 : -1.0;
-      const double t = sgn / (fabs(zeta) + sqrt(1.0 + zeta * zeta));
-      const double c = 1.0 / sqrt(1.0 + t * t);
-      const double s = c * t;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const double xp = b[i][p], xq = b[i][q];
-        b[i][p] = c * xp - s * xq;
-        b[i][q] = s * xp + c * xq;
-        const double wp = w[i][p], wq = w[i][q];
-        w[i][p] = c * wp - s * wq;
-        w[i][q] = s * wp + c * wq;
-      }
-      moved = true;
-    }
-    if (!moved) break;
-  }
-  double sig[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    sig[j] = sqrt((b[0][j] * b[0][j] + b[1][j] * b[1][j])
-                  + b[2][j] * b[2][j]);
-  int jmin = 0;
-  if (sig[1] < sig[jmin]) jmin = 1;
-  if (sig[2] < sig[jmin]) jmin = 2;
-  const int ka = jmin == 0 ? 1 : 0, kb = jmin == 2 ? 1 : 2;
-  const double da = clamp_min(sig[ka], 1e-300);
-  const double db = clamp_min(sig[kb], 1e-300);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const double ua = b[i][ka] / da, ub = b[i][kb] / db;
-#pragma unroll
-    for (int l = 0; l < 3; ++l)
-      E[3 * i + l] = ua * w[l][ka] + ub * w[l][kb];
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)

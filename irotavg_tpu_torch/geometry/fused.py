@@ -24,8 +24,8 @@ functions take the reference's ``seed`` (``prng.key(seed)``), and every
 loop splits its keys where the reference's does, one key per lane, so a
 lane the port skips (an inactive window candidate, the refine of a pair
 whose RANSAC failed) disturbs no other lane's draws.  The RANSACs of a
-batch of lanes draw and solve their samples in one ``ransac_hypotheses``
-launch and vote in one ``ransac_vote`` launch a stage.
+batch of lanes run every step in one launch for all of them
+(``essential.ransac_pose_lanes``).
 `fused_initial_pose` and `fused_refine_window` are the two halves of
 `fused_process_frame` (before and after the keyframe gate) as public
 calls.
@@ -49,7 +49,7 @@ import math
 import torch
 
 from irotavg_tpu_torch import prng
-from irotavg_tpu_torch.geometry.essential import ransac_lanes, recover_pose
+from irotavg_tpu_torch.geometry.essential import ransac_pose_lanes
 from irotavg_tpu_torch.matching.matchers import (
     _match_by_bow_core, _match_epipolar_core, _match_locally_core,
 )
@@ -94,18 +94,14 @@ def _assignment_coords(m12, x1, y1, x2, y2, cam):
 def _ransac_lanes(p1, p2, valid, keys, th_norm, n_samples=N_SAMPLES):
     """RANSAC + cheirality for L lanes of correspondences ``p1``, ``p2``
     (L, N, 2) with ``valid`` (L, N), lane ``l`` drawing from ``keys[l]``
-    (``essential.ransac_lanes``: every lane's hypotheses in one launch,
-    every vote over the lanes in one), then ``recover_pose`` lane by
-    lane.  Returns (E, R, t, n_che, pose_mask) with leading L."""
-    L = valid.shape[0]
-    with span("geometry.ransac", lanes=L):
-        Es, inls = ransac_lanes(p1, p2, valid, th_norm, keys=keys,
-                                n_samples=n_samples, h_samples=H_SAMPLES)
-        with span("geometry.ransac.lanes"):
-            out = [(Es[k],) + tuple(recover_pose(Es[k], p1[k], p2[k],
-                                                 inls[k]))
-                   for k in range(L)]
-        return tuple(torch.stack(v) for v in zip(*out))
+    (``essential.ransac_pose_lanes``: every step for every lane at once,
+    with no host read).  Returns (E, R, t, n_che, pose_mask) with leading
+    L."""
+    with span("geometry.ransac", lanes=valid.shape[0]):
+        E, _, R, t, n_che, pose_mask = ransac_pose_lanes(
+            p1, p2, valid, th_norm, keys=keys, n_samples=n_samples,
+            h_samples=H_SAMPLES)
+        return E, R, t, n_che, pose_mask
 
 
 def _flip_assignment(m12_cp, n_prev):

@@ -10,9 +10,12 @@ lanes of one set of tensors with the same per-lane stopping tests
 (``sdg < PDTOL``, ``pd_iters`` Newton steps, a stuck line search), so a
 lane that stops early is frozen exactly as the vmapped loop freezes it.
 The Newton systems are a batched Cholesky (``backend="dense"``) or
-per-lane matrix-free CG (``"cg"``).  Under a profiler session :func:`l1ra`
-runs inside a program span ``solver.l1ra`` (attribute ``iters``: the outer
-loop's steps; ``utils/timing.py``).
+per-lane matrix-free CG (``"cg"``).  On the CPU each outer step is
+:func:`l1ra_step` (the plain composition); on the card it is the four
+kernels of ``ops/l1decode.py`` around the same Newton solves
+(:func:`_newton_dx`), with one host read per outer step.  Under a profiler
+session :func:`l1ra` runs inside a program span ``solver.l1ra``
+(attribute ``iters``: the outer loop's steps; ``utils/timing.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import math
 import torch
 
 from irotavg_tpu_torch import so3
+from irotavg_tpu_torch.ops.l1decode import L1Kernels
 from irotavg_tpu_torch.solver.graph import (
     RotationGraph, incidence_matvec, incidence_rmatvec, laplacian_cg_solve,
     laplacian_dense,
@@ -233,6 +237,47 @@ def l1ra_step(g: RotationGraph, cfg: L1RAConfig, plan=None):
     return so3.qmul(g.Q, so3.exp_map(X)), free_mean(X, free)
 
 
+def _l1ra_plain(g: RotationGraph, cfg: L1RAConfig, plan):
+    """The outer loop of :func:`l1ra` on the CPU: ``l1ra_step`` until
+    every graph stops.  Returns ``(Q, iters, score, steps)``."""
+    batch = g.edges.shape[:-2]
+    Q = g.Q
+    score = torch.full(batch, math.inf, dtype=g.dtype, device=Q.device)
+    it = torch.zeros(batch, dtype=torch.int64, device=Q.device)
+    active = (score >= cfg.change_th) & (it < cfg.max_iters)
+    steps = 0
+    while bool(active.any()):
+        Q2, s2 = l1ra_step(dataclasses.replace(g, Q=Q), cfg, plan)
+        Q = torch.where(active[..., None, None], Q2, Q)
+        score = torch.where(active, s2, score)
+        it = it + active
+        active = (score >= cfg.change_th) & (it < cfg.max_iters)
+        steps += 1
+    return Q, it, score, steps
+
+
+def _l1ra_kernels(g: RotationGraph, cfg: L1RAConfig, plan):
+    """The outer loop of :func:`l1ra` on the card: the same steps, each
+    the kernels of ``ops/l1decode.py`` around the Newton solves, with one
+    host read per step (the composition reads once per Newton step and
+    once per line-search step besides).  A stopped lane or graph is
+    frozen, so every Newton step runs."""
+    k = L1Kernels(g, plan.rmatvec, cfg, PDTOL)
+    free = g.free_mask()
+    steps = 0
+    while k.any_active():
+        k.init()
+        for it in range(cfg.pd_iters):
+            sigx, w1p = k.pre()
+            dx = _newton_dx(g.edges, sigx, w1p, free, g.edge_mask, g.n, cfg,
+                            plan)
+            k.post(dx, last=it + 1 >= cfg.pd_iters)
+        k.update()
+        steps += 1
+    Q, it, score = k.result()
+    return Q, it, score, steps
+
+
 def l1ra(g: RotationGraph, cfg: L1RAConfig = L1RAConfig()):
     """Run L1-RA. Returns (Q, iters, score): iterate while the mean
     free-node update norm is >= ``change_th`` (note >=, unlike IRLS) and
@@ -240,20 +285,12 @@ def l1ra(g: RotationGraph, cfg: L1RAConfig = L1RAConfig()):
     stops window by window, as in :func:`irls`."""
     batch = g.edges.shape[:-2]
     dev = g.Q.device
-    Q = g.Q
-    score = torch.full(batch, math.inf, dtype=g.dtype, device=dev)
-    it = torch.zeros(batch, dtype=torch.int64, device=dev)
-    active = (score >= cfg.change_th) & (it < cfg.max_iters)
     with span("solver.l1ra") as sp:
         plan = _plans(g, cfg.backend, lanes=3)
-        steps = 0
-        while bool(active.any()):
-            Q2, s2 = l1ra_step(dataclasses.replace(g, Q=Q), cfg, plan)
-            Q = torch.where(active[..., None, None], Q2, Q)
-            score = torch.where(active, s2, score)
-            it = it + active
-            active = (score >= cfg.change_th) & (it < cfg.max_iters)
-            steps += 1
+        if dev.type == "cpu":
+            Q, it, score, steps = _l1ra_plain(g, cfg, plan)
+        else:
+            Q, it, score, steps = _l1ra_kernels(g, cfg, plan)
         sp.set(iters=steps)
     if batch:
         return Q, it, score

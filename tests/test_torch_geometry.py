@@ -24,6 +24,7 @@ from scipy.spatial.transform import Rotation as Rsc
 from irotavg_tpu.geometry import essential as je
 from irotavg_tpu_torch import prng
 from irotavg_tpu_torch.geometry import essential as te
+from irotavg_tpu_torch.ops import ransac
 from test_planar import _scene
 from jax_programs import release_jax_programs  # noqa: F401
 
@@ -178,9 +179,10 @@ def test_cheirality_counts_match_reference():
     ref = np.asarray(je._cheirality_counts(E, jnp.asarray(p1),
                                            jnp.asarray(p2),
                                            jnp.asarray(inl)))
-    got = te._cheirality_counts(torch.from_numpy(np.asarray(E)),
-                                torch.from_numpy(p1), torch.from_numpy(p2),
-                                torch.from_numpy(inl)).numpy()
+    got = ransac._cheirality_counts(
+        torch.from_numpy(np.asarray(E, np.float64))[None],
+        torch.from_numpy(inl)[None], torch.from_numpy(p1).double()[None],
+        torch.from_numpy(p2).double()[None])[0].numpy()
     # E near-degenerate samples may flip a borderline depth sign
     assert np.mean(got == ref) > 0.95
     assert np.max(np.abs(got - ref)) <= 2
@@ -188,10 +190,15 @@ def test_cheirality_counts_match_reference():
 
 def test_homography_decomposition_contains_motion():
     p1, p2, R_gt, t_gt = _scene(1.0, seed=6, noise_px=0.0)
-    p1 = torch.from_numpy(p1.astype(np.float32))
-    p2 = torch.from_numpy(p2.astype(np.float32))
-    w = torch.ones(len(p1))
-    Rs, ts = te._decompose_homography(te._homography_ls(p1, p2, w))
+    p1 = torch.from_numpy(p1.astype(np.float32)).double()[None]
+    p2 = torch.from_numpy(p2.astype(np.float32)).double()[None]
+    # the least-squares homography over every correspondence: the refit of
+    # a single "sample" whose transfer inliers are all of them
+    every = torch.ones((1, 1, p1.shape[1]), dtype=torch.bool)
+    H, _ = ransac.homography_refit_plain(
+        torch.eye(3, dtype=torch.float64)[None, None], every,
+        torch.ones((1, 1), dtype=torch.int32), p1, p2)
+    Rs, ts = ransac._decompose(H[:, 0])
     errs = [np.linalg.norm(Rsc.from_matrix(
-        R_gt.T @ R.double().numpy()).as_rotvec()) for R in Rs]
+        R_gt.T @ R.numpy()).as_rotvec()) for R in Rs[0]]
     assert np.degrees(min(errs)) < 0.05

@@ -232,6 +232,17 @@ def test_ransac_spans_equal_the_calls(runs):
                for i, *_ in rs)
 
 
+def test_lane_span_counts_the_tail_launches(runs):
+    """One ``geometry.ransac.lanes`` span (the batched tail) a RANSAC
+    call, whose ``launches`` counts the tail kernels' launches: none on the
+    CPU, where the plain versions run."""
+    _, (spans, calls) = runs
+    lanes = [(s[3], s[4]) for s in spans if s[0] == "geometry.ransac.lanes"]
+    rs = [i for i, s in enumerate(spans) if s[0] == "geometry.ransac"]
+    assert sorted(p for p, _ in lanes) == rs
+    assert all(attrs == {"launches": 0} for _, attrs in lanes)
+
+
 def test_trials_and_iters_equal_what_ran(runs):
     """``trials``: the local matches of the initial-pose search; ``iters``:
     the refine iterations of the pose and of the window walk."""

@@ -32,9 +32,9 @@ import chip_smoke as cs  # noqa: E402
 
 
 def stages(p1, p2, valid, key, th_norm):
-    """The intermediate results of one lane of ``essential.ransac_lanes``
-    (with ``fused.py``'s sample counts), on the device of the inputs,
-    moved to the CPU."""
+    """The intermediate results of one lane of
+    ``essential.ransac_pose_lanes`` (with ``fused.py``'s sample counts), on
+    the device of the inputs, moved to the CPU."""
     import torch
 
     from irotavg_tpu_torch.geometry import essential as te
@@ -48,15 +48,15 @@ def stages(p1, p2, valid, key, th_norm):
                                  n_samples=fused.N_SAMPLES,
                                  h_samples=fused.H_SAMPLES)
     inl, scores = ransac.ransac_vote(E, p1, p2, valid, th2, "sampson")
-    E, inl, scores = E[0], inl[0], scores[0]
-    top = torch.sort(scores, descending=True, stable=True)[1][:te.RERANK_K]
-    che = te._cheirality_counts(E[top], p1[0], p2[0], inl[top])
+    top, che = ransac.cheirality_rerank(E, inl, scores, p1, p2,
+                                        te.RERANK_K)
+    best, _, _ = ransac.essential_refit(top, che, inl, p1, p2)
     idx, _ = draw.draw_positions_plain(valid.cpu(), [key],
                                        ((fused.N_SAMPLES, 8),
                                         (fused.H_SAMPLES, 4)))
-    out = {"E_min": E[:fused.N_SAMPLES], "sup_h": sup_h[0],
-           "scores": scores, "top": top, "che": che,
-           "best": top[torch.argmax(che)]}
+    out = {"E_min": E[0, :fused.N_SAMPLES], "sup_h": sup_h[0],
+           "scores": scores[0], "top": top[0].long(), "che": che[0],
+           "best": best[0].long()}
     return {k: v.cpu() for k, v in out.items()}, idx[0]
 
 
@@ -85,14 +85,15 @@ def main(argv=None) -> int:
 
     os.makedirs(args.out, exist_ok=True)
     card_name = cs.phase_device()
-    run = fused.ransac_lanes
+    run = fused.ransac_pose_lanes
     tally = {"calls": 0, "differ": 0}
 
     def replayed(p1, p2, valid, th_norm, *, keys, **kw):
-        E, inl = run(p1, p2, valid, th_norm, keys=keys, **kw)
+        out = run(p1, p2, valid, th_norm, keys=keys, **kw)
+        inl = out[1]
         host = [t.cpu() for t in (p1, p2, valid)]
         th = torch.as_tensor(th_norm).cpu()
-        _, inl_cpu = run(*host, th, keys=keys, **kw)
+        inl_cpu = run(*host, th, keys=keys, **kw)[1]
         for k, key in enumerate(keys):
             tally["calls"] += 1
             if torch.equal(inl[k].cpu(), inl_cpu[k]):
@@ -117,14 +118,14 @@ def main(argv=None) -> int:
                      p1=host[0][k].numpy(), p2=host[1][k].numpy(),
                      valid=host[2][k].numpy(), key=np.array(key),
                      th=th.numpy())
-        return E, inl
+        return out
 
-    fused.ransac_lanes = replayed
+    fused.ransac_pose_lanes = replayed
     cs.hold_to_cpu = lambda *a, **k: None       # report, do not hold
     try:
         cs.phase_main_path(card_name, args.out)
     finally:
-        fused.ransac_lanes = run
+        fused.ransac_pose_lanes = run
     print(f"[replay] phase 3: {tally['calls']} RANSAC calls on the card, "
           f"{tally['differ']} with another inlier mask than the same call "
           f"on the CPU  ({card_name})")
