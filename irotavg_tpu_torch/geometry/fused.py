@@ -492,7 +492,7 @@ def fused_bow_pair_estimate(f1, f2, K_inv, sigma2, cam, th_norm, seed,
 
 
 def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, key,
-                        min_matches, max_iters=MAX_ITERS):
+                        min_matches, max_iters=MAX_ITERS, counts=None):
     """Independent two-view estimation for P arbitrary frame pairs (the
     offline pipeline's core, ``_pair_estimate_core`` of the reference).
 
@@ -510,7 +510,9 @@ def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, key,
     split(key, P)[p]``: its RANSAC from ``split(k)[1]``, its refine from
     ``split(split(k)[0])[1]``, as the reference's lanes do (a lane's keys
     do not depend on P, so padding a chunk changes no draw).  Returns (E,
-    R, t, n_che, m12, success) with leading P.
+    R, t, n_che, m12, success) with leading P.  A dict ``counts`` gets
+    ``refined``, the number of pairs that reached the refine (a host
+    count).
     """
     dA, vA, oA, xA, yA, aA = fa
     dB, vB, oB, xB, yB, aB = fb
@@ -528,6 +530,8 @@ def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, key,
     rel_ok = [count0[p] > 4 and n0[p] > 6 for p in range(P)]
     # more than 10 matches surviving cheirality implies rel_ok
     refine = [p for p, c in enumerate(cntf.tolist()) if c > 10]
+    if counts is not None:
+        counts["refined"] = len(refine)
     if refine:
         sel = torch.tensor(refine, device=dA.device)
         nodes_a = torch.zeros_like(vA[sel], dtype=torch.int32)
@@ -545,13 +549,15 @@ def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, key,
 
 def fused_pair_estimate_gather(desc, valid, octave, x, y, angle, ia, ib,
                                radius, K_inv, sigma2, cam, th_norm, seed,
-                               min_matches, max_iters=MAX_ITERS):
+                               min_matches, max_iters=MAX_ITERS,
+                               counts=None):
     """:func:`fused_pair_estimate` of the pairs ``(ia[p], ib[p])`` of
     stacked ``(F, N, ...)`` features, with the key ``prng.key(seed)``."""
     fa = tuple(a[ia] for a in (desc, valid, octave, x, y, angle))
     fb = tuple(a[ib] for a in (desc, valid, octave, x, y, angle))
     return fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm,
-                               prng.key(seed), min_matches, max_iters)
+                               prng.key(seed), min_matches, max_iters,
+                               counts)
 
 
 def fused_flow(fa, fb, radius):
