@@ -82,7 +82,15 @@ prints no result line):
    profiler session).  In every CLI run below each RANSAC batch runs
    under the sync debug mode "error", and the first
    ``RANSAC_PROFILED_CALLS`` are traced for copies and solver kernels
-   (``RANSAC_CALLS``).
+   (``RANSAC_CALLS``).  Last, the epipolar refine
+   (``geometry/fused.py:fused_refine``) at the main paths' lane counts
+   (``REFINE_CASES``: 1 and 3 lanes on a shared column frame under
+   ``epipolar``, 8 lanes with their own under ``epipolar_nonode``, the
+   last lane of a batch frozen), its loop replayed from CUDA graphs at
+   ``fused_refine``'s width (at least ``fused.REFINE_LANES`` lanes, the
+   padding frozen) against the same loop run eagerly at its own: every
+   output bit for bit, equal iterations, one replay an iteration, and
+   the host time of an iteration both ways (:func:`phase_refine_graphs`).
 3. main path — renders the first 150 frames of a one-lap synthetic
    KITTI-sized sequence (1241x376, KITTI 00 intrinsics, 300 frames a lap)
    with numpy, writes them as PGM with a GT file and an ORB-SLAM YAML
@@ -1935,6 +1943,209 @@ def ransac_parity(card):
 # -- phase 3: the synthetic KITTI-sized sequence and the CLI ------------------
 
 
+# fused_refine's calls on the main paths: (name, lanes, a column frame
+# per lane, vocabulary node ids); the last lane of a batch is a padding
+# lane, frozen from the start
+REFINE_CASES = (("pose_and_loop_1_shared_epipolar", 1, False, True),
+                ("window_walk_3_shared_epipolar", 3, False, True),
+                ("offline_8_per_lane_epipolar_nonode", 8, True, False))
+REFINE_SLOTS = 2000
+REFINE_TIMED_CALLS = 5
+
+
+def _random_desc(rng, n):
+    return rng.integers(-2**31, 2**31, (n, 8), dtype=np.int64).astype(
+        np.int32)
+
+
+def _refine_frame(rng, n, u, v, nodes, octave, angle, desc):
+    """Frame arrays ``(desc, nodes, valid, angle, x, y, octave)`` of ``n``
+    slots: the given features first, random ones after (a third of them
+    invalid)."""
+    m = len(u)
+    extra = n - m
+    valid = np.ones(n, bool)
+    valid[m:] = rng.random(extra) > 1 / 3
+    return (np.concatenate([desc, _random_desc(rng, extra)]),
+            np.concatenate([nodes, rng.integers(0, 100, extra)]).astype(
+                np.int32),
+            valid,
+            np.concatenate([angle, rng.uniform(0, 2 * np.pi, extra)]).astype(
+                np.float32),
+            np.concatenate([u, rng.uniform(0, KITTI_W, extra)]).astype(
+                np.float32),
+            np.concatenate([v, rng.uniform(0, KITTI_H, extra)]).astype(
+                np.float32),
+            np.concatenate([octave, rng.integers(0, 8, extra)]).astype(
+                np.int32))
+
+
+def _rotation(rng, deg):
+    """A rotation by ``deg`` about a random axis."""
+    ax = rng.normal(size=3)
+    k = ax / np.linalg.norm(ax)
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    a = np.radians(deg)
+    return np.eye(3) + np.sin(a) * Kx + (1 - np.cos(a)) * Kx @ Kx
+
+
+def _refine_scene(rng, n):
+    """A column frame of 900 scene points seen by KITTI's camera: (the
+    points, their descriptors, node ids, octaves and angles, the frame)."""
+    fx, fy, cx, cy = KITTI_K
+    m = 900
+    X2 = rng.uniform([-12, -3, 6], [12, 3, 50], (m, 3))
+    feats = (_random_desc(rng, m), rng.integers(0, 100, m),
+             rng.integers(0, 4, m), rng.uniform(0, 2 * np.pi, m))
+    desc, nodes, octave, angle = feats
+    cols = _refine_frame(rng, n, fx * X2[:, 0] / X2[:, 2] + cx,
+                         fy * X2[:, 1] / X2[:, 2] + cy, nodes, octave, angle,
+                         desc)
+    return X2, feats, cols
+
+
+def _refine_lane(rng, n, scene):
+    """One lane of refine inputs against ``scene``'s column frame: a row
+    frame seeing 700 of its points after a 1-3 deg, 0.3 m step (0.5 px
+    noise, 10 of 256 bits flipped, 15% of them outliers) with the rows'
+    slots shuffled, and a start from 40% of the true matches under the
+    true E turned by 0.1 deg.  Returns (rows, E0, R0, t0, m12_0) as
+    numpy."""
+    fx, fy, cx, cy = KITTI_K
+    X2, (desc2, nodes2, oct2, ang2), _ = scene
+    m, seen = len(X2), 700
+    R = _rotation(rng, rng.uniform(1.0, 3.0))
+    t = np.array([0.02, 0.01, -0.3])
+    X1 = (X2 - t) @ R                       # x2 = R x1 + t
+    pick = rng.choice(m, seen, replace=False)
+    flips = rng.integers(0, 256, (seen, 10))
+    desc1 = desc2[pick].view(np.uint32).copy()
+    for j in range(10):
+        w, b = flips[:, j] // 32, flips[:, j] % 32
+        desc1[np.arange(seen), w] ^= (np.uint32(1) << b.astype(np.uint32))
+    desc1 = desc1.view(np.int32)
+    out = rng.random(seen) < 0.15
+    desc1[out] = _random_desc(rng, int(out.sum()))
+    u1 = fx * X1[pick, 0] / X1[pick, 2] + cx + rng.normal(0, 0.5, seen)
+    v1 = fy * X1[pick, 1] / X1[pick, 2] + cy + rng.normal(0, 0.5, seen)
+    rows = _refine_frame(rng, n, u1, v1, nodes2[pick], oct2[pick],
+                         ang2[pick] + rng.normal(0, 0.02, seen), desc1)
+    perm = rng.permutation(n)                # rows' slots shuffled
+    rows = tuple(a[perm] for a in rows)
+    where = np.argsort(perm)                 # old slot -> new slot
+    m12_0 = np.full(n, -1, np.int64)
+    keep = np.flatnonzero(~out & (rng.random(seen) < 0.4))
+    m12_0[where[keep]] = pick[keep]
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    R0 = _rotation(rng, 0.1) @ R
+    return rows, tx @ R0, R0, t, m12_0
+
+
+def refine_case(torch, B, per_lane, has_nodes, dev, seed=0,
+                n=REFINE_SLOTS):
+    """``fused_refine``'s arguments for ``B`` lanes (one column frame per
+    lane, or lane 0's shared) of :func:`_refine_lane`, on ``dev``:
+    (f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam, th_norm, keys,
+    min_pairs, has_nodes)."""
+    from irotavg_tpu_torch import prng
+
+    rng = np.random.default_rng(seed)
+    scenes = [_refine_scene(rng, n) for _ in range(B if per_lane else 1)]
+    lanes = [_refine_lane(rng, n, scenes[b if per_lane else 0])
+             for b in range(B)]
+
+    def stack(arrays):
+        return torch.from_numpy(np.stack(arrays)).to(dev)
+
+    f1 = tuple(stack([lane[0][k] for lane in lanes]) for k in range(7))
+    f2 = tuple(stack([sc[2][k] for sc in scenes]) for k in range(6))
+    if not per_lane:
+        f2 = tuple(a[0] for a in f2)
+    if not has_nodes:
+        f1 = f1[:1] + (torch.zeros_like(f1[1]),) + f1[2:]
+        f2 = f2[:1] + (torch.zeros_like(f2[1]),) + f2[2:]
+    E0, R0, t0 = (stack([lane[k] for lane in lanes]).float()
+                  for k in (1, 2, 3))
+    m12_0 = stack([lane[4] for lane in lanes])
+    fx, fy, cx, cy = KITTI_K
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+    f32 = torch.float32
+    K_inv = torch.tensor(np.linalg.inv(K), dtype=f32, device=dev)
+    sigma2 = torch.tensor((1.2 ** np.arange(8)) ** 2, dtype=f32, device=dev)
+    cam = torch.tensor(KITTI_K, dtype=f32, device=dev)
+    th_norm = torch.tensor(np.float32(1.0 / fx), device=dev)
+    return (f1, f2, E0, R0, t0, (m12_0 >= 0).sum(dim=1), m12_0, K_inv,
+            sigma2, cam, th_norm, prng.split(prng.key(seed), B), 113,
+            has_nodes)
+
+
+def phase_refine_graphs(card):
+    """``fused_refine`` at each of :data:`REFINE_CASES`' calls on the
+    card, its loop replayed from CUDA graphs (at ``fused_refine``'s
+    width) against the same loop run eagerly (at its lanes): every
+    output bit for bit and the iterations equal, one
+    replay an iteration; then the host time of an iteration both ways,
+    the median of :data:`REFINE_TIMED_CALLS` calls each, in turns."""
+    import torch
+
+    from irotavg_tpu_torch.geometry import fused
+
+    dev = _device(torch)
+    rows = []
+    for name, B, per_lane, has_nodes in REFINE_CASES:
+        args = refine_case(torch, B, per_lane, has_nodes, dev)
+        frozen = [B > 1 and b == B - 1 for b in range(B)]
+
+        def run(replay):
+            # replayed at fused_refine's width, eager at B
+            width = (max(fused.REFINE_LANES, 1 << (B - 1).bit_length())
+                     if replay else B)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, replays, _ = fused._refine(*args, fused.MAX_ITERS,
+                                            fused.N_SAMPLES, frozen, replay,
+                                            width)
+            torch.cuda.synchronize()
+            return out, replays, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        graph, replays, _ = run(True)
+        first_s = time.perf_counter() - t0
+        eager, eager_replays, _ = run(False)
+        iters = graph[5]
+        for i, (g, e) in enumerate(zip(graph[:5], eager[:5])):
+            if not _same_bits(g, e):
+                raise SmokeError(f"refine {name}: output {i} replayed from "
+                                 f"graphs differs from the eager loop")
+        if not (iters == eager[5] >= 1 and replays == iters
+                and eager_replays == 0):
+            raise SmokeError(f"refine {name}: iterations {iters} / "
+                             f"{eager[5]}, replays {replays} / "
+                             f"{eager_replays}")
+        times = {True: [], False: []}
+        for k in range(REFINE_TIMED_CALLS):
+            for replay in ((False, True) if k % 2 else (True, False)):
+                out, _, s = run(replay)
+                if not all(_same_bits(a, b)
+                           for a, b in zip(out, graph[:5])):
+                    raise SmokeError(f"refine {name}: a repeated call "
+                                     f"differs")
+                times[replay].append(1e3 * s / iters)
+        row = {"case": name, "lanes": B, "iters": iters,
+               "matches": int((graph[4] >= 0).sum()),
+               "eager_ms_per_iter": statistics.median(times[False]),
+               "replayed_ms_per_iter": statistics.median(times[True]),
+               "first_call_s": first_s}
+        rows.append(row)
+        print(f"[refine] {name}: replayed == eager bit for bit, {iters} "
+              f"iterations, {replays} replays; per iteration "
+              f"{row['eager_ms_per_iter']:.3f} ms eager, "
+              f"{row['replayed_ms_per_iter']:.3f} ms replayed (host clock, "
+              f"median of {REFINE_TIMED_CALLS}); first call with its "
+              f"capture {first_s:.3f} s  ({card})")
+    return rows
+
+
 def _blur(img, sigma):
     """Separable Gaussian blur (numpy, edge-replicated)."""
     r = int(3 * sigma + 0.5)
@@ -3478,6 +3689,7 @@ def main(argv=None) -> int:
         l1k = phase_l1ra_kernels(card)
         drawk = phase_draw_kernel(card)
         ransack = phase_ransac_kernels(card) + phase_ransac_tail(card)
+        refine = phase_refine_graphs(card)
         main_launches, main_by_gate, phase3 = phase_main_path(card, args.out)
         frames.append(phase3[0])
         vocab = vocab_file(args.out)
@@ -3511,6 +3723,7 @@ def main(argv=None) -> int:
         "phase6_resume": resume_by_gate, "phase7_offline": offline_by_gate,
         "phase10_surfaces": surf_by_gate}
     kern["prefetch_extraction_ms"] = prefetch
+    kern["refine_graphs"] = refine
     print(f"[smoke] every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     # the composed-route solve of phase 5b is a comparison, not a path

@@ -4,8 +4,10 @@ Port of ``irotavg_tpu/geometry/fused.py``: the reference's `refinePose`
 (src/ViewGraph.cpp:725-783), `findInitialPose` (:828-902) and the window
 walk of `processFrame` (:1035-1145).  The reference runs each as one
 compiled ``lax.while_loop`` with all state on device; here each is a
-Python loop over device tensors that reads a few scalars back per
-iteration, with the same stopping rules: ``stall >= 2`` and
+Python loop over device tensors that reads a few values back per
+iteration (the refine one vector, its lanes' stop flags, its re-match
+and update replayed from CUDA graphs on the card), with the same
+stopping rules: ``stall >= 2`` and
 ``MAX_ITERS`` for the refine, ``MAX_TRIALS`` with the search radius
 x1.25 per retry for the initial pose, and the ``GATE_PX`` keyframe gate.
 With ``has_nodes`` (every frame involved carries vocabulary node ids) the
@@ -39,20 +41,26 @@ Under a profiler session each RANSAC batch (:func:`_ransac_lanes`) runs
 inside a program span ``geometry.ransac`` (attribute ``lanes``), the
 initial-pose search inside ``geometry.initial_pose`` (``trials``) and
 the post-gate part inside ``geometry.refine_window`` (``iters``, the
-refine iterations of the pose and the window walk); ``utils/timing.py``.
+refine iterations of the pose and the window walk), and each refine
+inside ``geometry.refine`` (``lanes``, ``iters``, ``replays``,
+``captures`` and the re-match's shape);
+``utils/timing.py``.
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import torch
 
 from irotavg_tpu_torch import prng
 from irotavg_tpu_torch.geometry.essential import ransac_pose_lanes
 from irotavg_tpu_torch.matching.matchers import (
-    _match_by_bow_core, _match_epipolar_core, _match_locally_core,
+    _epipolar_rowf, _match_by_bow_core, _match_epipolar_core,
+    _match_locally_core,
 )
+from irotavg_tpu_torch.ops import match as match_ops
 from irotavg_tpu_torch.utils.timing import span
 
 N_SAMPLES = 512        # minimal 8-point samples per RANSAC
@@ -61,6 +69,13 @@ F64 = torch.float64
 MAX_ITERS = 10         # refine alternations
 MAX_TRIALS = 6         # initial-pose radius escalations
 GATE_PX = 5.0          # keyframe gate on the mean match displacement
+REFINE_GRAPHS = 16     # refine signatures whose CUDA graphs are kept
+REFINE_LANES = 8       # the fewest lanes a refine replays (padding frozen)
+
+# :func:`fused_refine`'s captured loops by signature, least recently used
+# first (module level, so that a throwaway warm-up captures what later
+# calls replay)
+_refine_loops: OrderedDict = OrderedDict()
 
 
 def _norm_coords(x, y, cam):
@@ -77,17 +92,23 @@ def _mean_disp(xa, ya, xb, yb, matched):
     return (total / matched.sum(dim=-1).clamp(min=1)).to(torch.float32)
 
 
-def _assignment_coords(m12, x1, y1, x2, y2, cam):
-    """Normalised correspondences of L assignment vectors ``m12 (L, N1)``
-    (rows of frame 1 -> columns of frame 2): ``p1``, ``p2`` (L, N1, 2)
-    and ``valid`` (L, N1).  ``x2`` / ``y2`` are ``(L, N2)`` or one
-    ``(N2,)`` frame shared by the lanes."""
+def _column_coords(m12, x2, y2, cam):
+    """Normalised column points of L assignment vectors ``m12 (L, N1)``:
+    ``(L, N1, 2)``; ``x2`` / ``y2`` are ``(L, N2)`` or one ``(N2,)`` frame
+    shared by the lanes."""
     j = m12.clamp(min=0)
     if x2.dim() == 1:
         x2, y2 = x2[j], y2[j]
     else:
         x2, y2 = x2.gather(1, j), y2.gather(1, j)
-    return (_norm_coords(x1, y1, cam), _norm_coords(x2, y2, cam),
+    return _norm_coords(x2, y2, cam)
+
+
+def _assignment_coords(m12, x1, y1, x2, y2, cam):
+    """Normalised correspondences of L assignment vectors ``m12 (L, N1)``
+    (rows of frame 1 -> columns of frame 2): ``p1``, ``p2`` (L, N1, 2)
+    and ``valid`` (L, N1), the columns as in :func:`_column_coords`."""
+    return (_norm_coords(x1, y1, cam), _column_coords(m12, x2, y2, cam),
             m12 >= 0)
 
 
@@ -119,9 +140,174 @@ def _flip_assignment(m12_cp, n_prev):
     return out[:n_prev]
 
 
+class _RefineLoop:
+    """The tensors of :func:`fused_refine` for one signature, and the three
+    steps of its loop over them:
+
+    - ``prep``: what the loop does not change, the rows' gate features
+      and normalised points;
+    - ``rematch``: every lane's epipolar re-match under its ``E_cur``, the
+      matches' normalised points and counts;
+    - ``update``: every lane's state updated under masks from the RANSAC
+      results put in by :meth:`take`.
+
+    Every lane stays in the batch; a lane that stopped (``done``) is
+    frozen by the update's masks.  On a CUDA device each step can be a
+    CUDA graph, captured once (:meth:`capture`) and replayed; otherwise
+    the steps run eagerly.
+    """
+
+    def __init__(self, f1, f2, K_inv, sigma2, cam, has_nodes):
+        dev = f1[0].device
+        B, N1 = f1[4].shape
+        f32, i64 = torch.float32, torch.int64
+
+        def zeros(*shape, dtype=f32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.has_nodes = has_nodes
+        self.gate = "epipolar" if has_nodes else "epipolar_nonode"
+        self.rows = tuple(torch.empty_like(a) for a in f1)
+        self.cols = tuple(torch.empty_like(a) for a in f2)
+        self.consts = tuple(torch.empty_like(a) for a in (K_inv, sigma2, cam))
+        self.min_pairs = zeros(dtype=i64)
+        self.E_cur, self.E, self.R = (zeros(B, 3, 3) for _ in range(3))
+        self.t = zeros(B, 3)
+        self.best_n, self.stall = zeros(B, dtype=i64), zeros(B, dtype=i64)
+        self.best_m12 = zeros(B, N1, dtype=i64)
+        self.done = zeros(B, dtype=torch.bool)
+        # the RANSAC results of the lanes that ran (:meth:`take`)
+        self.new = (zeros(B, 3, 3), zeros(B, 3, 3), zeros(B, 3),
+                    zeros(B, dtype=i64), zeros(B, N1, dtype=torch.bool))
+        self.graphs = None
+        self.prep, self.rematch, self.update = (self._prep, self._rematch,
+                                                self._update)
+
+    def load(self, f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
+             min_pairs, frozen):
+        """Copy a call's inputs in; the lanes ``frozen`` start done."""
+        # first, while the queue is short: a copy from the host waits for it
+        self.done.copy_(torch.tensor(frozen))
+        for buf, a in zip(self.rows + self.cols + self.consts,
+                          tuple(f1) + tuple(f2) + (K_inv, sigma2, cam)):
+            buf.copy_(a)
+        self.min_pairs.fill_(min_pairs)
+        for buf, a in ((self.E_cur, E0), (self.E, E0), (self.R, R0),
+                       (self.t, t0), (self.best_n, n0),
+                       (self.best_m12, m12_0)):
+            buf.copy_(a)
+        self.stall.zero_()
+
+    def _prep(self):
+        _, nodes1, valid1, _, x1, y1, oct1 = self.rows
+        _, sigma2, cam = self.consts
+        self.rowf = _epipolar_rowf(valid1, nodes1, x1, y1, oct1, sigma2)
+        self.p1 = _norm_coords(x1, y1, cam)
+
+    def _rematch(self):
+        K_inv, sigma2, cam = self.consts
+        # in f64, so that the f32 F is the same on the card and the CPU
+        F = (K_inv.T.to(F64) @ self.E_cur.to(F64) @ K_inv.to(F64)).to(
+            torch.float32)
+        # a stopped lane matches nothing: its rows go in invalid (the
+        # plain matcher skips such lanes)
+        rowf = self.rowf * (~self.done)[:, None, None]
+        # the matcher itself, not the module entry a caller may wrap: a
+        # wrapper that synchronises cannot be captured
+        self.m12 = _match_epipolar_core(
+            *self.rows, *self.cols, F, sigma2, has_nodes=self.has_nodes,
+            rowf=rowf, matcher=match_ops.best2)
+        self.valid = self.m12 >= 0
+        self.p2 = _column_coords(self.m12, self.cols[4], self.cols[5], cam)
+        self.counts = self.valid.sum(dim=1)
+
+    def take(self, sel, *results):
+        """Put in the RANSAC results (E, R, t, n_che, pose_mask) of the
+        lanes ``sel`` (a device index; None: every lane)."""
+        for buf, v in zip(self.new, results):
+            if sel is None:
+                buf.copy_(v)
+            else:
+                buf.index_copy_(0, sel, v.to(buf.dtype))
+
+    def _update(self):
+        E_new, R_new, t_new, n_new, mask = self.new
+        active = ~self.done
+        c = self.counts
+        usable = active & (c >= self.min_pairs) & (c > 4) & (n_new > 6)
+        improved = usable & (n_new > self.best_n)
+        lane3 = improved[:, None, None]
+        self.E.copy_(torch.where(lane3, E_new, self.E))
+        self.R.copy_(torch.where(lane3, R_new, self.R))
+        self.t.copy_(torch.where(improved[:, None], t_new, self.t))
+        self.best_n.copy_(torch.where(improved, n_new, self.best_n))
+        kept = torch.where(mask, self.m12, torch.full_like(self.m12, -1))
+        self.best_m12.copy_(torch.where(improved[:, None], kept,
+                                        self.best_m12))
+        self.E_cur.copy_(torch.where(usable[:, None, None], E_new,
+                                     self.E_cur))
+        stall = torch.where(improved, 0, self.stall + 1)
+        self.stall.copy_(torch.where(active, stall, self.stall))
+        self.done.copy_(self.done | (active & (~usable | (stall >= 2))))
+
+    def capture(self):
+        """Capture the three steps as CUDA graphs sharing one memory pool,
+        after one eager run of each on the capturing stream (it loads their
+        kernels and warms the allocator, and changes the state: load the
+        inputs again).  Neither run counts a matcher launch."""
+        dev = self.done.device
+        counted = (match_ops.best2.launches,
+                   dict(match_ops.best2.launches_by_gate))
+        steps = (self._prep, self._rematch, self._update)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graphs, pool = [], None
+        with torch.cuda.stream(side):
+            for step in steps:
+                step()
+            for step in steps:
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                step()
+                g.capture_end()
+                pool = pool or g.pool()
+                graphs.append(g)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        match_ops.best2.launches, match_ops.best2.launches_by_gate = counted
+        self.graphs = graphs
+        self.prep, self.update = graphs[0].replay, graphs[2].replay
+        self.rematch = self._replay_rematch
+
+    def _replay_rematch(self):
+        self.graphs[1].replay()
+        match_ops.count_launch(self.gate)
+
+    def result(self, B):
+        """The state of the first ``B`` lanes."""
+        return tuple(a[:B].clone() for a in (self.E, self.R, self.t,
+                                             self.best_n, self.best_m12))
+
+
+def _captured_loop(f1, f2, K_inv, sigma2, cam, has_nodes):
+    """The module's :class:`_RefineLoop` for this signature (the gate, and
+    the device, shape and dtype of every frame tensor and constant: lanes,
+    row and column slots, a shared or per-lane column frame, octave
+    levels), the most recently used ``REFINE_GRAPHS`` kept; a new one is
+    not captured yet."""
+    key = (has_nodes,) + tuple((a.device, a.shape, a.dtype) for a in (
+        *f1, *f2, K_inv, sigma2, cam))
+    loop = _refine_loops.pop(key, None)
+    if loop is None:
+        loop = _RefineLoop(f1, f2, K_inv, sigma2, cam, has_nodes)
+    _refine_loops[key] = loop
+    while len(_refine_loops) > REFINE_GRAPHS:
+        _refine_loops.popitem(last=False)
+    return loop
+
+
 def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
                  th_norm, keys, min_pairs, has_nodes=False,
-                 max_iters=MAX_ITERS, n_samples=N_SAMPLES):
+                 max_iters=MAX_ITERS, n_samples=N_SAMPLES, frozen=None):
     """`refinePose` over a batch of B row frames.
 
     ``f1`` holds row-frame tensors with a leading batch axis
@@ -133,62 +319,99 @@ def fused_refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam,
     its current E, re-solves, and keeps the best model while the
     cheirality count strictly grows; a lane stops when the rematch is too
     small (< ``min_pairs``, <= 4), recovery gives <= 6 inliers, or after
-    two re-solves without improvement.  Stopped lanes are frozen.
-    ``has_nodes`` selects the ``epipolar`` gate (same vocabulary node
-    required) over ``epipolar_nonode``.  ``keys`` holds one host key per
-    lane, split once per iteration of that lane (the reference's
-    ``k, sub = split(k)``).  Returns (E, R, t, best_n, best_m12, iters)
-    per lane.
+    two re-solves without improvement.  Stopped lanes are frozen: they
+    stay in the batch, and only the lanes still running run RANSAC.
+    ``frozen`` (a host list of bools) names lanes stopped from the start:
+    they return their inputs and split no key.  ``has_nodes`` selects the
+    ``epipolar`` gate (same vocabulary node required) over
+    ``epipolar_nonode``.  ``keys`` holds one host key per lane, split once
+    per iteration of that lane (the reference's ``k, sub = split(k)``).
+    Returns (E, R, t, best_n, best_m12, iters) per lane.
+
+    On a CUDA device the re-match, and the update of every lane's state,
+    replay CUDA graphs captured once per signature and kept at module
+    level, the lanes padded with frozen ones to a power of two of at least
+    ``REFINE_LANES`` (the shapes of the main paths meet one signature a
+    gate, captured before a window of them); the host reads one vector
+    an iteration, the lanes' stop flags.  Under a profiler session the
+    call runs inside the program span ``geometry.refine`` (``lanes``:
+    those not frozen;
+    ``width``, ``rows``, ``cols``, ``shared``, ``gate``: the re-match's
+    launch, its lanes with the frozen and padding ones, its row and column
+    slots, one column frame for every lane or not, its gate; ``iters``;
+    ``replays``: the iterations that replayed graphs; ``captures``: the
+    graphs' captures, 1 where the call met a new signature).
     """
-    desc1, nodes1, valid1, angle1, x1, y1, oct1 = f1
-    per_lane = f2[0].dim() == 3
-    B = desc1.shape[0]
-    f32 = torch.float32
-    E_cur = E0.to(f32).clone()
-    E, R, t = E0.to(f32).clone(), R0.to(f32).clone(), t0.to(f32).clone()
-    best_n = n0.to(torch.int64).clone()
-    best_m12 = m12_0.to(torch.int64).clone()
+    B = f1[0].shape[0]
+    frozen = [False] * B if frozen is None else [bool(f) for f in frozen]
+    lanes = frozen.count(False)
+    replay = f1[0].device.type == "cuda"
+    width = max(REFINE_LANES, 1 << (B - 1).bit_length()) if replay else B
+    rows, cols = f1[4].shape[1], f2[4].shape[-1]
+    shared = int(f2[0].dim() == 2)
+    gate = "epipolar" if has_nodes else "epipolar_nonode"
+    with span("geometry.refine", lanes=lanes, width=width, rows=rows,
+              cols=cols, shared=shared, gate=gate) as sp:
+        out, replays, captures = _refine(
+            f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam, th_norm, keys,
+            min_pairs, has_nodes, max_iters, n_samples, frozen, replay, width)
+        sp.set(iters=out[5], replays=replays, captures=captures)
+    return out
+
+
+def _refine(f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam, th_norm, keys,
+            min_pairs, has_nodes, max_iters, n_samples, frozen, replay,
+            width):
+    """:func:`fused_refine`'s loop over ``width`` lanes (its B lanes, then
+    lane 0 repeated and frozen), its steps replayed from CUDA graphs with
+    ``replay`` and run eagerly without; returns fused_refine's tuple, the
+    iterations replayed and the captures made."""
+    B = len(frozen)
+    if width > B:
+        pad = torch.tensor(list(range(B)) + [0] * (width - B),
+                           device=f1[0].device)
+        f1 = tuple(a[pad] for a in f1)
+        if f2[0].dim() == 3:
+            f2 = tuple(a[pad] for a in f2)
+        E0, R0, t0, n0, m12_0 = (a[pad] for a in (E0, R0, t0, n0, m12_0))
+        keys = list(keys) + [keys[0]] * (width - B)
+        frozen = frozen + [True] * (width - B)
+    if replay:
+        loop = _captured_loop(f1, f2, K_inv, sigma2, cam, has_nodes)
+    else:
+        loop = _RefineLoop(f1, f2, K_inv, sigma2, cam, has_nodes)
+    inputs = (f1, f2, E0, R0, t0, n0, m12_0, K_inv, sigma2, cam, min_pairs,
+              frozen)
+    loop.load(*inputs)
+    captures = 0
+    if replay and loop.graphs is None:
+        loop.capture()
+        loop.load(*inputs)
+        captures = 1
+    loop.prep()
     keys = list(keys)
-    done = [False] * B
-    stall = [0] * B
+    done = frozen
     it = 0
     while not all(done) and it < max_iters:
-        lanes = [b for b in range(B) if not done[b]]
-        sel = torch.tensor(lanes, device=desc1.device)
-        # in f64, so that the f32 F is the same on the card and the CPU
-        F = (K_inv.T.to(F64) @ E_cur[sel].to(F64) @ K_inv.to(F64)).to(f32)
-        cols = tuple(a[sel] for a in f2) if per_lane else f2
-        m12 = _match_epipolar_core(
-            desc1[sel], nodes1[sel], valid1[sel], angle1[sel], x1[sel],
-            y1[sel], oct1[sel], *cols, F, sigma2, has_nodes=has_nodes)
-        counts = (m12 >= 0).sum(dim=1).tolist()
+        lanes = [b for b in range(len(done)) if not done[b]]
+        # before the re-match: a copy from the host waits for the queue
+        sel = (None if len(lanes) == len(done) else
+               torch.tensor(lanes, device=loop.done.device))
+        loop.rematch()
         subs = []
         for b in lanes:
             keys[b], sub = prng.split(keys[b])
             subs.append(sub)
+        points = (loop.p1, loop.p2, loop.valid)
+        if sel is not None:
+            points = tuple(a[sel] for a in points)
         # fresh hypotheses every re-solve (no model seeding): a seeded
         # pool locks into a model that cheirality rejects
-        Es, Rs, ts, ns, masks = _ransac_lanes(
-            *_assignment_coords(m12, x1[sel], y1[sel], cols[4], cols[5],
-                                cam), subs, th_norm, n_samples)
-        ns = ns.tolist()
-        for k, b in enumerate(lanes):
-            E_new, R_new, t_new, pose_mask = Es[k], Rs[k], ts[k], masks[k]
-            n_new = ns[k]
-            usable = (counts[k] >= min_pairs and counts[k] > 4
-                      and n_new > 6)
-            improved = usable and n_new > int(best_n[b])
-            if improved:
-                E[b], R[b], t[b] = E_new, R_new, t_new
-                best_n[b] = n_new
-                best_m12[b] = torch.where(pose_mask, m12[k],
-                                          torch.full_like(m12[k], -1))
-            if usable:
-                E_cur[b] = E_new
-            stall[b] = 0 if improved else stall[b] + 1
-            done[b] = (not usable) or stall[b] >= 2
+        loop.take(sel, *_ransac_lanes(*points, subs, th_norm, n_samples))
+        loop.update()
+        done = loop.done.tolist()
         it += 1
-    return E, R, t, best_n, best_m12, it
+    return loop.result(B) + (it,), it if replay else 0, captures
 
 
 def _initial_pose_core(fc, fp, local_rad0, cam, th_norm, key, min_inliers,
@@ -304,14 +527,15 @@ def _window_connect(fw, m12_0, active, f2, K_inv, sigma2, cam, th_norm, key,
             if cntf[i] > 10:          # implies rel_ok
                 refine.append(k)
     if refine:
-        sel = torch.tensor(refine, device=dev)
-        cnt = (m12[sel] >= 0).sum(dim=1)
-        Er, Rr, tr, nr, m12r, iters = fused_refine(
-            tuple(a[sel] for a in fw), f2, E[sel], R[sel], t[sel], cnt,
-            m12[sel], K_inv, sigma2, cam, th_norm,
-            [prng.split(keys[k])[1] for k in refine],
-            math.ceil(0.75 * min_matches), has_nodes)
-        E[sel], R[sel], t[sel], n[sel], m12[sel] = Er, Rr, tr, nr, m12r
+        # every candidate in the batch, those that do not refine frozen:
+        # the refine keeps one width
+        frozen = [k not in refine for k in range(K)]
+        n0 = torch.where(torch.tensor(frozen, device=dev), n,
+                         (m12 >= 0).sum(dim=1))
+        E, R, t, n, m12, iters = fused_refine(
+            fw, f2, E, R, t, n0, m12, K_inv, sigma2, cam, th_norm,
+            [prng.split(k)[1] for k in keys], math.ceil(0.75 * min_matches),
+            has_nodes, frozen=frozen)
     final = (m12 >= 0).sum(dim=1).tolist()
     success = [rel_ok[k] and final[k] >= min_matches for k in range(K)]
     return (E, R, t, n, m12, success), iters
@@ -504,12 +728,13 @@ def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, key,
     inliers), then, when more than 10 matches survive it, the epipolar
     refine of every such pair in one batched run with each lane's own
     column frame (gate ``epipolar_nonode``, rematch floor ``ceil(0.75 *
-    min_matches)``).  ``success`` (a host list) when ``rel_ok`` and the
-    final count reaches ``min_matches``; the pose maps A -> B (edge
-    convention ``R_B = R_AB R_A``).  Pair ``p`` draws from ``k =
-    split(key, P)[p]``: its RANSAC from ``split(k)[1]``, its refine from
-    ``split(split(k)[0])[1]``, as the reference's lanes do (a lane's keys
-    do not depend on P, so padding a chunk changes no draw).  Returns (E,
+    min_matches)``), every pair a lane, those that do not refine frozen
+    (so that the refine's width is P's).  ``success`` (a host list) when
+    ``rel_ok`` and the final count reaches ``min_matches``; the pose maps
+    A -> B (edge convention ``R_B = R_AB R_A``).  Pair ``p`` draws from
+    ``k = split(key, P)[p]``: its RANSAC from ``split(k)[1]``, its refine
+    from ``split(split(k)[0])[1]``, as the reference's lanes do (a lane's
+    keys do not depend on P, so padding a chunk changes no draw).  Returns (E,
     R, t, n_che, m12, success) with leading P.  A dict ``counts`` gets
     ``refined``, the number of pairs that reached the refine (a host
     count).
@@ -519,29 +744,29 @@ def fused_pair_estimate(fa, fb, radius, K_inv, sigma2, cam, th_norm, key,
     m12 = _match_locally_core(dA, vA, oA, xA, yA, dB, vB, oB, xB, yB,
                               radius, 0.9)
     P = dA.shape[0]
-    count0 = (m12 >= 0).sum(dim=1).tolist()
+    count0 = (m12 >= 0).sum(dim=1)
     lane = [prng.split(k) for k in prng.split(key, P)]
     E, R, t, n, mask = _ransac_lanes(
         *_assignment_coords(m12, xA, yA, xB, yB, cam),
         [sub for _, sub in lane], th_norm)
     m12 = torch.where(mask, m12, torch.full_like(m12, -1))
-    n0 = n.tolist()
     cntf = (m12 >= 0).sum(dim=1)
+    count0, n0, cnt = torch.stack([count0, n, cntf]).tolist()
     rel_ok = [count0[p] > 4 and n0[p] > 6 for p in range(P)]
     # more than 10 matches surviving cheirality implies rel_ok
-    refine = [p for p, c in enumerate(cntf.tolist()) if c > 10]
+    refine = [p for p, c in enumerate(cnt) if c > 10]
     if counts is not None:
         counts["refined"] = len(refine)
     if refine:
-        sel = torch.tensor(refine, device=dA.device)
-        nodes_a = torch.zeros_like(vA[sel], dtype=torch.int32)
-        nodes_b = torch.zeros_like(vB[sel], dtype=torch.int32)
-        E[sel], R[sel], t[sel], n[sel], m12[sel], _ = fused_refine(
-            (dA[sel], nodes_a, vA[sel], aA[sel], xA[sel], yA[sel], oA[sel]),
-            (dB[sel], nodes_b, vB[sel], aB[sel], xB[sel], yB[sel]),
-            E[sel], R[sel], t[sel], cntf[sel], m12[sel], K_inv, sigma2,
-            cam, th_norm, [prng.split(lane[p][0])[1] for p in refine],
-            math.ceil(0.75 * min_matches), False, max_iters)
+        frozen = [p not in refine for p in range(P)]
+        n_in = torch.where(torch.tensor(frozen, device=dA.device), n, cntf)
+        nodes_a = torch.zeros_like(vA, dtype=torch.int32)
+        nodes_b = torch.zeros_like(vB, dtype=torch.int32)
+        E, R, t, n, m12, _ = fused_refine(
+            (dA, nodes_a, vA, aA, xA, yA, oA), (dB, nodes_b, vB, aB, xB, yB),
+            E, R, t, n_in, m12, K_inv, sigma2, cam, th_norm,
+            [prng.split(k)[1] for k, _ in lane],
+            math.ceil(0.75 * min_matches), False, max_iters, frozen=frozen)
     final = (m12 >= 0).sum(dim=1).tolist()
     success = [rel_ok[p] and final[p] >= min_matches for p in range(P)]
     return E, R, t, n, m12, success

@@ -30,11 +30,13 @@ HISTO_LENGTH = 30    # src/ViewGraph.cpp:32
 _BIG = 10_000
 
 
-def _best_two(desc1, desc2, rowf, colf, gate):
+def _best_two(desc1, desc2, rowf, colf, gate, matcher=None):
     """(d1, d2) as int32 and the best column as int64.  A shared column
     frame (2-D ``desc2`` or ``colf`` beside batched rows) goes to the
-    kernel as it is, with a batch stride of 0."""
-    d1, d2, idx = best2(desc1, desc2, rowf, colf, gate)
+    kernel as it is, with a batch stride of 0.  ``matcher`` replaces this
+    module's ``best2`` (a caller that captures the launch in a CUDA graph
+    passes ``ops.match.best2`` itself, which nothing wraps)."""
+    d1, d2, idx = (matcher or best2)(desc1, desc2, rowf, colf, gate)
     return d1.to(torch.int32), d2.to(torch.int32), idx.long()
 
 
@@ -116,16 +118,28 @@ def epipolar_lines(x2, y2, F12):
     return a, b, c
 
 
+def _epipolar_rowf(valid1, nodes1, x1, y1, oct1, sigma2_oct):
+    """The rows' feature block of the epipolar gates: the chi-square
+    threshold ``3.84 sigma^2`` of each row's octave."""
+    th = 3.84 * sigma2_oct[oct1.long()]
+    return make_rowf(valid1, node=nodes1, x=x1, y=y1, th=th)
+
+
 def _match_epipolar_core(desc1, nodes1, valid1, angle1, x1, y1, oct1,
                          desc2, nodes2, valid2, angle2, x2, y2,
-                         F12, sigma2_oct, has_nodes=True):
+                         F12, sigma2_oct, has_nodes=True, rowf=None,
+                         matcher=None):
+    """Epipolar matching under ``F12``.  ``rowf``, when given, is the
+    rows' feature block that :func:`_epipolar_rowf` makes of ``valid1``,
+    ``nodes1``, ``x1``, ``y1``, ``oct1`` and ``sigma2_oct`` (made once for
+    a loop of re-matches); ``matcher`` as in :func:`_best_two`."""
+    if rowf is None:
+        rowf = _epipolar_rowf(valid1, nodes1, x1, y1, oct1, sigma2_oct)
     a, b, c = epipolar_lines(x2, y2, F12)
-    th = 3.84 * sigma2_oct[oct1.long()]
-    rowf = make_rowf(valid1, node=nodes1, x=x1, y=y1, th=th)
     colf = make_colf(torch.as_tensor(valid2).expand(a.shape), node=nodes2,
                      a=a, b=b, c=c)
     gate = "epipolar" if has_nodes else "epipolar_nonode"
-    d1, _, best = _best_two(desc1, desc2, rowf, colf, gate)
+    d1, _, best = _best_two(desc1, desc2, rowf, colf, gate, matcher)
     matches12 = torch.where(d1 <= TH_LOW, best, torch.full_like(best, -1))
     matches12 = _resolve_conflicts(matches12, d1, desc2.shape[-2])
     return rotation_consistency_filter(matches12, angle1, angle2)

@@ -109,7 +109,22 @@ def best2_plain(desc1, desc2, rowf, colf, gate: str):
     """Plain PyTorch version: ``128 - ½·(pm1 @ pm1ᵀ)`` in f32 (exact),
     the gate, a first-occurrence argmin, and ``d2`` as the min with the
     argmin column masked; a shared (N2, 8) ``desc2`` or ``colf``
-    broadcasts over the batch.  Returns (d1, d2, idx): f32, f32, int32."""
+    broadcasts over the batch.  A batch entry with no valid row is not
+    computed: its rows get what no admitted pair gives, ``BIG``, ``BIG``
+    and -1.  Returns (d1, d2, idx): f32, f32, int32."""
+    if desc1.dim() == 3:
+        live = (rowf[..., 0] > 0).any(dim=-1)
+        if not bool(live.all()):
+            d1 = torch.full(desc1.shape[:2], BIG, device=desc1.device)
+            d2 = d1.clone()
+            idx = torch.full_like(d1, -1, dtype=torch.int32)
+            sel = live.nonzero().squeeze(1)
+            if sel.numel():
+                def lanes(t):
+                    return t[sel] if t.dim() == 3 else t
+                d1[sel], d2[sel], idx[sel] = best2_plain(
+                    desc1[sel], lanes(desc2), rowf[sel], lanes(colf), gate)
+            return d1, d2, idx
     pm1 = unpack_pm1(desc1)
     pm2 = unpack_pm1(desc2)
     D = 128.0 - 0.5 * (pm1 @ pm2.transpose(-1, -2))
@@ -219,8 +234,7 @@ def best2_launcher(desc1, desc2, rowf, colf, gate: str):
         if err != 0:
             raise RuntimeError(f"match_best2 launch failed: CUDA error "
                                f"{err}")
-        best2.launches += 1
-        best2.launches_by_gate[gate] += 1
+        count_launch(gate)
 
     out = (d1[0], d2[0], idx[0]) if squeeze else (d1, d2, idx)
     return launch, out
@@ -243,12 +257,20 @@ def best2(desc1, desc2, rowf, colf, gate: str):
     return out
 
 
+def count_launch(gate: str) -> None:
+    """Count one launch of the kernel under ``gate`` (a launch made by
+    :func:`best2_launcher`'s ``launch``, or one replayed in a CUDA graph
+    that captured such a launch)."""
+    best2.launches += 1
+    best2.launches_by_gate[gate] += 1
+
+
 def reset_launch_counts() -> None:
     """Zero the kernel launch counters of :func:`best2`."""
     best2.launches = 0
     best2.launches_by_gate = dict.fromkeys(GATES, 0)
 
 
-# kernel launches made by best2 and best2_launcher, in total and per gate
-# (read and reset by chip_smoke.py)
+# kernel launches made by best2 and best2_launcher or replayed, in total
+# and per gate (read and reset by chip_smoke.py)
 reset_launch_counts()

@@ -104,6 +104,33 @@ def test_best2_batched(problem, gate):
         _assert_same([g[b].numpy() for g in got], ref, f"{gate} b={b}")
 
 
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lane", "shared"])
+@pytest.mark.parametrize("gate", ["none", "epipolar"])
+def test_best2_plain_lanes_without_valid_rows(problem, gate, shared):
+    """A batch entry with no valid row, which the plain version does not
+    compute, gets what the whole product gives it (``BIG``, ``BIG``, -1),
+    and the other entries their own answers; a batch of such entries
+    only gives them alone."""
+    d1, d2, m = problem
+    desc1, desc2, rowf, colf = _port_inputs(gate, d1, d2, m)
+    dead = rowf.clone()
+    dead[:, 0] = 0.0
+    rows = (torch.stack([desc1] * 3), torch.stack([rowf, dead, rowf]))
+    cols = (desc2, colf) if shared else (torch.stack([desc2] * 3),
+                                         torch.stack([colf] * 3))
+    got = tmatch.best2_plain(rows[0], cols[0], rows[1], cols[1], gate)
+    for b, r in enumerate((rowf, dead, rowf)):
+        want = tmatch.best2_plain(desc1, desc2, r, colf, gate)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g[b], w), b
+    assert bool((got[2][1] == -1).all())
+    none = tmatch.best2_plain(rows[0][1:2], cols[0][1:2] if not shared
+                              else cols[0], rows[1][1:2],
+                              cols[1][1:2] if not shared else cols[1], gate)
+    for g, w in zip(none, got):
+        assert torch.equal(g[0], w[1])
+
+
 def test_word_packing_roundtrip(problem):
     """int32 bit patterns unpack to the reference's ±1 rows."""
     d1, _, _ = problem

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from irotavg_tpu.frontend import ORBExtractor as JaxORB
 from irotavg_tpu.geometry import fused as jfused
@@ -27,6 +28,7 @@ from irotavg_tpu_torch import prng
 from irotavg_tpu_torch.geometry import fused
 from irotavg_tpu_torch.interop import features_from_arrays
 from irotavg_tpu_torch.matching.matchers import _match_locally_core
+from irotavg_tpu_torch.utils import timing
 from seqgen import make_sequence
 from jax_programs import release_jax_programs  # noqa: F401
 
@@ -143,17 +145,23 @@ def test_fused_pair_estimate_matches_jax_outcomes(feats):
 def _refine_inputs(t, K, lanes):
     """Initial models and assignments for the pairs ``lanes`` (local
     match + RANSAC), as the pair estimate hands them to the refine."""
+    return _pair_inputs(t, K, PAIRS[lanes, 0], PAIRS[lanes, 1],
+                        RADII[lanes])
+
+
+def _pair_inputs(t, K, ia, ib, radii):
+    """:func:`_refine_inputs` of the pairs ``(ia[p], ib[p])`` searched at
+    ``radii``."""
     K_inv, sigma2, cam, th_norm = (torch.from_numpy(np.asarray(c))
                                    for c in _consts(K))
-    ia, ib = PAIRS[lanes, 0], PAIRS[lanes, 1]
     m12 = _match_locally_core(
         t["desc"][ia], t["valid"][ia], t["octave"][ia], t["x0"][ia],
         t["y0"][ia], t["desc"][ib], t["valid"][ib], t["octave"][ib],
-        t["x0"][ib], t["y0"][ib], torch.from_numpy(RADII[lanes]), 0.9)
+        t["x0"][ib], t["y0"][ib], torch.from_numpy(radii), 0.9)
     E, R, tt, n, mask = fused._ransac_lanes(
         *fused._assignment_coords(m12, t["x0"][ia], t["y0"][ia],
                                   t["x0"][ib], t["y0"][ib], cam),
-        prng.split(prng.key(3), len(lanes)), th_norm)
+        prng.split(prng.key(3), len(ia)), th_norm)
     m12 = torch.where(mask, m12, torch.full_like(m12, -1))
 
     def frame(i, rows):
@@ -205,3 +213,166 @@ def test_refine_shared_frame_equals_broadcast_frame(feats):
     for a, b in zip(shared[:5], per_lane[:5]):
         assert torch.equal(a, b)
     assert shared[5] == per_lane[5] >= 1
+
+
+# rows of these frames against frame 5's columns, the shared-frame lanes
+SHARED_ROWS = np.array([4, 6, 3, 7, 2, 8, 1, 0])
+
+
+def _key_chains(monkeypatch):
+    """Record every ``prng.split``: key -> the key it hands on."""
+    chain, split = {}, prng.split
+
+    def recording(k, n=2):
+        out = split(k, n)
+        chain[tuple(k)] = tuple(out[0])
+        return out
+
+    monkeypatch.setattr(prng, "split", recording)
+    return chain
+
+
+def _splits(chain, key):
+    """How many times ``key`` and its successors were split."""
+    n, k = 0, tuple(key)
+    while k in chain:
+        n, k = n + 1, chain[k]
+    return n
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lane", "shared"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_refine_lanes_equal_lanes_alone(feats, monkeypatch, B, shared):
+    """Every lane of a batched refine equals that lane run alone, in
+    every output and in its iterations (the splits of its key), with one
+    column frame per lane or one shared.  The last lane of a batch is a
+    padding lane, frozen from the start: it returns its inputs, splits no
+    key and changes no other lane.  Under a CPU profiler the call records
+    one ``geometry.refine`` span whose ``lanes``, re-match shape,
+    ``iters``, ``replays`` and ``captures`` (none on the CPU) are what
+    ran; without one, nothing."""
+    _, _, t, K = feats
+    if shared:
+        ia, ib = SHARED_ROWS[:B], np.full(B, 5)
+        radii = (40.0 + 25.0 * np.abs(ia - 5)).astype(np.float32)
+    else:
+        ia, ib, radii = PAIRS[:B, 0], PAIRS[:B, 1], RADII[:B]
+    _, _, init, consts, frame = _pair_inputs(t, K, ia, ib, radii)
+    rows = frame(torch.from_numpy(ia), True)
+    cols = frame(5 if shared else torch.from_numpy(ib), False)
+    floor = math.ceil(0.75 * MIN_MATCHES)
+    keys = prng.split(prng.key(11), B)
+    frozen = [B > 1 and b == B - 1 for b in range(B)]
+    chain = _key_chains(monkeypatch)
+    timing.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = fused.fused_refine(rows, cols, *init, *consts, keys, floor,
+                                 frozen=frozen)
+    spans = [s for s in timing.recorded_spans() if s[0] == "geometry.refine"]
+    timing.clear_spans()
+    assert [s[4] for s in spans] == [
+        {"lanes": B - sum(frozen), "width": B, "rows": rows[4].shape[1],
+         "cols": cols[4].shape[-1], "shared": int(shared),
+         "gate": "epipolar_nonode", "iters": got[5], "replays": 0,
+         "captures": 0}]
+    iters = [_splits(chain, k) for k in keys]
+    assert got[5] == max(iters) >= 1
+    for b in range(B):
+        chain.clear()
+        one = fused.fused_refine(
+            tuple(a[b:b + 1] for a in rows),
+            cols if shared else tuple(a[b:b + 1] for a in cols),
+            *(v[b:b + 1] for v in init), *consts, [keys[b]], floor,
+            frozen=frozen[b:b + 1])
+        for g, w in zip(got[:5], one[:5]):
+            assert torch.equal(g[b], w[0]), b
+        assert one[5] == iters[b] == _splits(chain, keys[b]), b
+    assert timing.recorded_spans() == []
+    if frozen[-1]:
+        assert iters[-1] == 0
+        want = (init[0].float(), init[1].float(), init[2].float(), init[3],
+                init[4])
+        for g, w in zip(got[:5], want):
+            assert torch.equal(g[-1], w[-1])
+    assert (got[4][:B - sum(frozen)] >= 0).sum() > 100 * (B - sum(frozen))
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_lane", "shared"])
+def test_refine_padding_lanes_change_nothing(feats, monkeypatch, shared):
+    """The loop at a wider batch than its lanes (lane 0 repeated and
+    frozen, as ``fused_refine`` pads its lanes on a CUDA device) gives
+    every lane's outputs and iterations unpadded, and a padding lane
+    splits no key."""
+    _, _, t, K = feats
+    B = 3
+    if shared:
+        ia, ib = SHARED_ROWS[:B], np.full(B, 5)
+        radii = (40.0 + 25.0 * np.abs(ia - 5)).astype(np.float32)
+    else:
+        ia, ib, radii = PAIRS[:B, 0], PAIRS[:B, 1], RADII[:B]
+    _, _, init, consts, frame = _pair_inputs(t, K, ia, ib, radii)
+    rows = frame(torch.from_numpy(ia), True)
+    cols = frame(5 if shared else torch.from_numpy(ib), False)
+    keys = prng.split(prng.key(11), B)
+    frozen = [False, True, False]
+
+    def run(width):
+        out, replays, captures = fused._refine(
+            rows, cols, *init, *consts, keys, math.ceil(0.75 * MIN_MATCHES),
+            False, fused.MAX_ITERS, fused.N_SAMPLES, frozen, False, width)
+        assert replays == captures == 0
+        return out
+
+    splits, split = [], prng.split
+    monkeypatch.setattr(prng, "split",
+                        lambda k, n=2: splits.append(k) or split(k, n))
+    want = run(B)
+    n_want = len(splits)
+    got = run(8)
+    for g, w in zip(got, want):
+        assert g == w if isinstance(g, int) else torch.equal(g, w)
+    assert got[0].shape[0] == B and got[5] >= 1
+    # the five padding lanes split no key
+    assert len(splits) == 2 * n_want
+
+
+def _signature(B, per_lane=False, n1=6, n2=5, xdtype=torch.float32):
+    """Zero row and column frames of ``B`` lanes, ``n1`` / ``n2`` slots,
+    coordinates of ``xdtype``."""
+    def frame(shape):
+        z = torch.zeros
+        return (z(shape + (8,), dtype=torch.int32),
+                z(shape, dtype=torch.int32), z(shape, dtype=torch.bool),
+                z(shape), z(shape, dtype=xdtype), z(shape, dtype=xdtype),
+                z(shape, dtype=torch.int32))
+    return frame((B, n1)), frame((B, n2) if per_lane else (n2,))[:6]
+
+
+def test_refine_loops_kept_by_signature_least_recently_used_out(
+        monkeypatch):
+    """The module keeps one refine loop a signature (lanes, row and column
+    slots, a shared or per-lane column frame, gate, octave levels, the
+    dtypes) and hands it back; past ``REFINE_GRAPHS`` signatures the
+    least recently used goes."""
+    monkeypatch.setattr(fused, "_refine_loops", type(fused._refine_loops)())
+    consts = (torch.eye(3), torch.ones(8), torch.ones(4))
+
+    def loop(B, *a, has_nodes=True, **kw):
+        return fused._captured_loop(*_signature(B, *a, **kw), *consts,
+                                    has_nodes)
+
+    first = loop(1)
+    assert loop(1) is first and first.graphs is None
+    others = [loop(1, True), loop(1, has_nodes=False), loop(1, n1=7),
+              loop(1, n2=4), loop(1, xdtype=torch.float64)]
+    assert all(o is not first for o in others)
+    assert len({id(o) for o in others}) == len(others)
+    full = fused.REFINE_GRAPHS - len(others)        # B = 2 .. full: full
+    for B in range(2, full + 1):
+        loop(B)
+    assert len(fused._refine_loops) == fused.REFINE_GRAPHS
+    assert loop(1) is first                  # used again: the newest
+    loop(full + 1)                           # one more: the oldest goes
+    assert len(fused._refine_loops) == fused.REFINE_GRAPHS
+    assert loop(1) is first
+    assert loop(1, True) is not others[0]

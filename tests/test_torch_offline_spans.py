@@ -74,7 +74,8 @@ def _job(n_frames, vocab, traced):
         return out
 
     def counted_refine(f1, *a, **kw):
-        refines.append(f1[0].shape[0])
+        # the lanes that refine; the others ride along frozen
+        refines.append(f1[0].shape[0] - sum(kw.get("frozen") or ()))
         return refine(f1, *a, **kw)
 
     mp.setattr(offline, "fused_pair_estimate_gather", recording)

@@ -47,8 +47,9 @@ READS = ("item", "tolist", "numpy", "cpu", "__bool__", "__int__",
 PARENTS = {
     "geometry.initial_pose": {"engine.process_frame"},
     "geometry.refine_window": {"engine.process_frame"},
+    "geometry.refine": {"geometry.refine_window", "placerec.loop_closure"},
     "geometry.ransac": {"geometry.initial_pose", "geometry.refine_window",
-                        "placerec.loop_closure"},
+                        "geometry.refine", "placerec.loop_closure"},
     "geometry.ransac.lanes": {"geometry.ransac"},
     "geometry.ransac.kernels": {"geometry.ransac"},
     "solver.l1ra": {"engine.rot_avg"},
