@@ -10,7 +10,8 @@ prints no result line):
    name and power limit (``nvidia-smi``) and the torch / CUDA versions.
 1. build — compiles every CUDA source of the main path from
    ``irotavg_tpu_torch/csrc`` (``match_best2``, ``segment_sum``,
-   ``laplacian``, ``threefry_draw``, ``ransac_hyp``, ``ransac_vote``),
+   ``laplacian``, ``ransac_hyp``, ``ransac_vote``, ``ransac_tail``,
+   ``l1_decode``),
    one nvcc each, all started together, and prints the
    build seconds and ptxas's ``-v`` report (registers, shared memory,
    spills).
@@ -49,27 +50,24 @@ prints no result line):
    gives the distances only (no gate, no top-2) and is never called by
    the port.  Also at the offline pipeline's shape: 8 pairs, each lane
    with its own column frame, under ``local`` and ``epipolar_nonode``.
-   ``threefry_draw`` (RANSAC's sample positions from JAX's threefry
-   keys) bit for bit against ``draw_positions_plain`` at ``DRAW_CASES``
+   ``ransac_hyp`` (every lane's minimal-sample hypotheses: the draws
+   from JAX's threefry keys, the 8-point E projected onto (1, 1, 0), the
+   4-point H) and ``ransac_vote`` (Sampson and transfer masks and
+   counts, on the kernel's own hypotheses) bit for bit against their
+   plain versions on the same inputs moved to the CPU, at ``DRAW_CASES``
    (the engine's 512 + 192 draws and find_relative_pose's 1024 + 192 over
    2000 flags, the offline chunk's 8 lanes, none / one / all valid, 70
-   lanes in two launches, 20,000 flags), timed beside its bound and the
-   plain version (no library call draws JAX's stream); then the RANSAC
-   parity check: 48 ``ransac_essential`` + ``recover_pose`` calls at
-   phase 3's shape on the card and on the CPU with the same keys, every
-   inlier mask and cheirality count equal and E within one f32 rounding.
-   ``ransac_hyp`` (every lane's minimal-sample hypotheses: the draws,
-   the 8-point E projected onto (1, 1, 0), the 4-point H) and
-   ``ransac_vote`` (Sampson and transfer masks and counts, on the
-   kernel's own hypotheses) bit for bit against their plain versions on
-   the same inputs moved to the CPU, at the draw's cases and
-   ``DUPLICATE_CASE`` (samples at given positions, each drawing a
-   correspondence twice), timed at the engine's, ``find_relative_pose``'s
-   and the offline chunk's shapes beside their bounds, the plain
-   versions on the card, ``torch.linalg.svd`` of the same designs and the
-   eager Sampson composition they replaced.  Then RANSAC's five tail
-   kernels (``csrc/ransac_tail.cu``: the homography refit, the pool's
-   8 motions, the cheirality re-rank, the 8-point refit, the refit's
+   lanes in two launches, 20,000 flags) and ``DUPLICATE_CASE`` (samples
+   at given positions, each drawing a correspondence twice), timed at
+   the engine's, ``find_relative_pose``'s and the offline chunk's shapes
+   beside their bounds, the plain versions on the card,
+   ``torch.linalg.svd`` of the same designs and the eager Sampson
+   composition they replaced; then the RANSAC parity check: 48
+   ``ransac_essential`` + ``recover_pose`` calls at phase 3's shape on
+   the card and on the CPU with the same keys, every inlier mask and
+   cheirality count equal and E within one f32 rounding.  Then RANSAC's
+   five tail kernels (``csrc/ransac_tail.cu``: the homography refit, the
+   pool's 8 motions, the cheirality re-rank, the 8-point refit, the refit's
    check with the pose) at the same cases, each step fed the card's
    outputs of the steps before and held to its plain version on the same
    inputs moved to the CPU (decisions equal, f64 outputs within
@@ -192,8 +190,7 @@ SIFT) counts the launches of ``segment_sum``, ``laplacian_matvec`` and
 ``laplacian_assemble`` from 0 and fails if it launched a kernel of its
 backend no time (``DENSE_PATH``, ``CG_PATH``); every CLI run counts
 RANSAC's kernels the same way and fails unless it launched ``ransac_hyp``
-and ``ransac_vote``, the five tail kernels and no ``threefry_draw``
-(``RANSAC_LAUNCHES``).
+and ``ransac_vote`` and the five tail kernels (``RANSAC_LAUNCHES``).
 
 The second-to-last stdout line is the kernel report
 ``{"kernels": [...]}``; the last is
@@ -337,8 +334,8 @@ KERNEL_SYMBOL = "match_best2_kernel"
 
 # the sources of the port's hand-written kernels
 # (irotavg_tpu_torch/csrc/<name>.cu), one nvcc each
-KERNELS = ("match_best2", "segment_sum", "laplacian", "threefry_draw",
-           "ransac_hyp", "ransac_vote", "ransac_tail", "l1_decode")
+KERNELS = ("match_best2", "segment_sum", "laplacian", "ransac_hyp",
+           "ransac_vote", "ransac_tail", "l1_decode")
 # the solver's kernels: segment_sum (ops/segment.py) and the fused
 # Laplacian matvec and assembly (ops/laplacian.py, csrc/laplacian.cu)
 SOLVER_KERNELS = ("segment_sum", "laplacian_matvec", "laplacian_assemble")
@@ -349,9 +346,7 @@ CG_PATH = ("segment_sum", "laplacian_matvec")
 # before the path runs (read at the end for the kernel report)
 SOLVER_LAUNCHES: dict[str, dict[str, int]] = {}
 # launches of RANSAC's kernels per CLI run, counted the same way: the
-# hypotheses, the vote and the five tail kernels (each must launch), and
-# threefry_draw (off the RANSAC path since the hypotheses kernel draws for
-# itself: must not)
+# hypotheses, the vote and the five tail kernels (each must launch)
 RANSAC_LAUNCHES: dict[str, dict[str, int]] = {}
 # per CLI run: RANSAC batches made, and the device-to-host copies and
 # solver-library kernels inside the traced ones (both must be 0; every
@@ -1210,7 +1205,7 @@ def phase_laplacian_kernels(card):
              "max_abs_err": 0.0, **asm["window_l1_lanes_f64"], "cases": asm}]
 
 
-# -- phase 2, threefry_draw: RANSAC's sample positions ------------------------
+# -- phase 2, RANSAC's cases ------------------------------------------------
 
 # (name, lanes, N, valid share or "none" / "one" / "all", draw shapes): the
 # engine's RANSAC (N = 2000 features, 512 8-point and 192 4-point draws),
@@ -1418,60 +1413,6 @@ def ransac_parity_inputs(seed):
     return p1.astype(np.float32), p2.astype(np.float32), valid
 
 
-def phase_draw_kernel(card):
-    """``threefry_draw`` on the card against its plain version on the
-    same inputs moved to the CPU, bit for bit, at :func:`draw_cases`;
-    times of the kernel and of the plain version on the card beside the
-    bound; then the RANSAC parity check (:func:`ransac_parity`)."""
-    import torch
-
-    from irotavg_tpu_torch.ops import draw
-
-    dev = _device(torch)
-    timed = {}
-    for name, valid, keys, shapes in draw_cases(dev):
-        got = draw.draw_positions(valid, keys, shapes)
-        ref = draw.draw_positions_plain(valid.cpu(), keys, shapes)
-        torch.cuda.synchronize()
-        for g, r, what in zip(got, ref, ("first", "second")):
-            if not torch.equal(g.cpu(), r):
-                bad = int((g.cpu() != r).sum())
-                raise SmokeError(f"threefry_draw != plain on {name}: "
-                                 f"{bad} of {r.numel()} {what}-shape "
-                                 f"positions differ")
-        L, n = valid.shape
-        n_draws = sum(int(np.prod(s)) for s in shapes)
-        nv = valid.sum(dim=1).tolist()
-        line = (f"[kernel] threefry_draw {name}: {L} lane(s) x {n} flags "
-                f"(valid {min(nv)}-{max(nv)}), {n_draws} draws a lane: "
-                f"equal to the plain version")
-        if name in DRAW_TIMED:
-            launch, _ = draw.draw_launcher(valid, keys, shapes)
-            k_ms = _time_ms(torch, launch)
-            p_ms = _time_ms(torch, lambda: draw.draw_positions_plain(
-                valid, keys, shapes), per_window=10, windows=5)
-            b_ms, b_by = draw.bound_ms(L, n, n_draws)
-            timed[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "bound_share": b_ms / k_ms,
-                           "library_ms": None}
-            line += (f"; kernel {k_ms:.4f} ms, bound {b_ms:.6f} ms "
-                     f"({b_by}), share of bound {b_ms / k_ms:.4f}; plain "
-                     f"{p_ms:.4f} ms")
-        print(f"{line}  ({card})")
-    print(f"[kernel] threefry_draw bit-identical to draw_positions_plain in "
-          f"{len(DRAW_CASES)} cases  ({card})")
-    parity = ransac_parity(card)
-    return {"name": "threefry_draw", "route": "cuda",
-            "source": "irotavg_tpu_torch/csrc/threefry_draw.cu",
-            "replaces": "irotavg_tpu/geometry/essential.py:620-641 "
-                        "(jax.random.randint and the cumulative-count "
-                        "search of ransac_essential; no Pallas kernel)",
-            "max_abs_err": 0, **timed["engine_512x8_192x4"],
-            "library_note": "none: no PyTorch call draws JAX's threefry "
-                            "stream",
-            "cases": timed, "ransac_parity": parity}
-
-
 def _case_points(rng, lanes, n):
     """:func:`_two_views` of ``n`` correspondences per lane, rounded to
     f32 and held in f64 (the precision RANSAC solves in): ``p1``, ``p2``
@@ -1639,6 +1580,7 @@ def phase_ransac_kernels(card):
     n_cases = len(DRAW_CASES) + 1
     print(f"[kernel] ransac_hyp and ransac_vote (both modes) bit-identical to "
           f"their plain versions in {n_cases} cases  ({card})")
+    parity = ransac_parity(card)
     main = "engine_512x8_192x4"
     return [
         {"name": "ransac_hypotheses", "route": "cuda",
@@ -1650,7 +1592,7 @@ def phase_ransac_kernels(card):
          "max_abs_err": 0, **timed["ransac_hypotheses"][main],
          "library_note": "torch.linalg.svd of the same (S + H, 8, 9) "
                          "designs: the solve only",
-         "cases": timed["ransac_hypotheses"]},
+         "cases": timed["ransac_hypotheses"], "ransac_parity": parity},
         {"name": "ransac_vote", "route": "cuda",
          "source": "irotavg_tpu_torch/csrc/ransac_vote.cu",
          "replaces": "irotavg_tpu/geometry/essential.py:160 "
@@ -2326,12 +2268,11 @@ def _run_logged(main_fn, argv, out, name):
     matcher's and RANSAC's kernel launch counters set to 0 just before and
     read just after, and the solver kernels' counted under ``name``.
     Returns (log, wall seconds, launches, launches by gate); raises when
-    it returns non-zero, never launched ``ransac_hyp`` or ``ransac_vote``,
-    or launched ``threefry_draw``."""
+    it returns non-zero or never launched one of RANSAC's kernels."""
     import contextlib
 
     from irotavg_tpu_torch.geometry import fused
-    from irotavg_tpu_torch.ops import draw, match, ransac
+    from irotavg_tpu_torch.ops import match, ransac
 
     run = fused._ransac_lanes
     seen = {"calls": 0, "dtoh": 0, "solver_kernels": 0}
@@ -2359,7 +2300,6 @@ def _run_logged(main_fn, argv, out, name):
     log_path = os.path.join(out, f"{name}.log")
     with open(log_path, "w", buffering=1) as fh:           # line-buffered
         match.reset_launch_counts()
-        draw.reset_launch_counts()
         ransac.reset_launch_counts()
         t0 = time.perf_counter()
         fused._ransac_lanes = checked
@@ -2374,7 +2314,6 @@ def _run_logged(main_fn, argv, out, name):
         RANSAC_LAUNCHES[name] = {
             "ransac_hypotheses": ransac.ransac_hypotheses.launches,
             "ransac_vote": ransac.ransac_vote.launches,
-            "threefry_draw": draw.draw_positions.launches,
             **{k: getattr(ransac, k).launches for k in TAIL_KERNELS}}
         RANSAC_CALLS[name] = dict(seen)
     with open(log_path) as fh:
@@ -2387,9 +2326,6 @@ def _run_logged(main_fn, argv, out, name):
     if min(counts[k] for k in ("ransac_hypotheses", "ransac_vote")
            + TAIL_KERNELS) <= 0:
         raise SmokeError(f"{name} never launched one of RANSAC's kernels: "
-                         f"{counts}")
-    if counts["threefry_draw"]:
-        raise SmokeError(f"{name} launched threefry_draw on the RANSAC path: "
                          f"{counts}")
     if seen["dtoh"] or seen["solver_kernels"]:
         raise SmokeError(f"{name}: a RANSAC call read the card or ran a "
@@ -3687,7 +3623,6 @@ def main(argv=None) -> int:
         seg = phase_segment_kernel(card)
         fused = phase_laplacian_kernels(card)
         l1k = phase_l1ra_kernels(card)
-        drawk = phase_draw_kernel(card)
         ransack = phase_ransac_kernels(card) + phase_ransac_tail(card)
         refine = phase_refine_graphs(card)
         main_launches, main_by_gate, phase3 = phase_main_path(card, args.out)
@@ -3733,14 +3668,11 @@ def main(argv=None) -> int:
         entry["launches"] = sum(c[entry["name"]] for c in paths.values())
         entry["launches_by_path"] = {p: c[entry["name"]]
                                      for p, c in paths.items()}
-    drawk["note"] = ("redesigned as the head of ransac_hypotheses; no "
-                     "longer on the main path")
-    for entry in [drawk] + ransack:
+    for entry in ransack:
         by_path = {p: c[entry["name"]] for p, c in RANSAC_LAUNCHES.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    print(json.dumps({"kernels": [kern, seg] + fused + [l1k, drawk]
-                      + ransack}))
+    print(json.dumps({"kernels": [kern, seg] + fused + [l1k] + ransack}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -183,7 +183,8 @@ def main(argv=None) -> int:
         print(f"resumed at source frame {skip_until} "
               f"({vg.num_views} keyframes)")
     else:
-        vg = ViewGraph(camera, min_matches=cfg.vg_min_matches, device=device)
+        vg = ViewGraph(camera, min_matches=cfg.vg_min_matches, device=device,
+                       loop_cfg=cfg.loop)
     todo = [(count + 1, impath) for count, (_ts, impath) in enumerate(loader)
             if count >= skip_until and count % cfg.sampling_step == 0]
     count = skip_until      # the resume cursor written into checkpoints

@@ -37,7 +37,7 @@
 // Householder steps, the Jacobi sweeps).  Design: one thread per
 // hypothesis, its 9x8 matrix in local memory (cached in L1); every block
 // of a lane scans the lane's flags into shared memory itself for the
-// draws' binary search, as csrc/threefry_draw.cu does.  A warp per
+// draws' binary search.  A warp per
 // hypothesis would shorten the chain, at the price of a fixed reduction
 // order across lanes; it is left for a later change.
 

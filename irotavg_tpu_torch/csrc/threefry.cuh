@@ -1,5 +1,5 @@
-// JAX's threefry draws of RANSAC's sample positions, as device code shared
-// by csrc/threefry_draw.cu and csrc/ransac_hyp.cu.
+// JAX's threefry draws of RANSAC's sample positions, as device code of
+// csrc/ransac_hyp.cu.
 //
 // A lane's draw d, with valid flags v (n bytes) scanned into cs, and the
 // keys (k1, k2) of d's shape (i = d's index in its shape):

@@ -12,10 +12,10 @@
   FP64, so the reference's f32 default for large solves is not carried.
 * Random draws are the JAX package's own: its threefry key tree derived
   on the host (``prng.py``: ``key``, ``split``, ``fold_in``), and
-  RANSAC's samples mapped from those keys by one hand-written kernel on
-  the card (``ops/draw.py``, ``csrc/threefry_draw.cu``) or its plain
-  version on the CPU, so both devices draw the numbers the JAX CLIs
-  draw.  No global RNG state and no ``torch.Generator`` is involved.
+  RANSAC's samples mapped from those keys by the hypotheses kernel on
+  the card (``csrc/ransac_hyp.cu``) or by ``ops/draw.py`` on the CPU, so
+  both devices draw the numbers the JAX CLIs draw.  No global RNG state
+  and no ``torch.Generator`` is involved.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 # Copied from irotavg_tpu/engine/checkpoint.py (numpy only; deduplicate once irotavg_tpu imports lazily);
-# load_checkpoint builds the port's ViewGraph, Frame, Connection and RelativePose.
+# load_checkpoint builds the port's ViewGraph, Frame, Connection and RelativePose;
+# the database and the groups are those of the graph's LoopDetector.
 """First-class restartable checkpoints for the SLAM engine.
 
 The reference only ever *writes* state — `rotavg_poses.txt` every 5
@@ -108,9 +109,9 @@ def save_checkpoint(vg, path: str, extra: dict | None = None) -> None:
     out["conn_nche"] = np.array([c.pose.n_cheirality for c in conns],
                                 np.int64)
 
-    # place-recognition database + loop-consistency state
-    out["db_ids"] = np.array(sorted(vg.db.bows), np.int64)
-    groups = vg._consistent_groups
+    # the loop detector: its database's views and its consistency groups
+    out["db_ids"] = np.array(sorted(vg.loop.db.bows), np.int64)
+    groups = vg.loop.groups
     out["group_members"], out["group_offsets"] = _csr(
         [np.fromiter(g, np.int64, len(g)) for g, _ in groups], np.int64)
     out["group_counts"] = np.array([c for _, c in groups], np.int64)
@@ -178,13 +179,11 @@ def load_checkpoint(path: str, camera, device=None):
         vg.adjacency.setdefault(i, {})[j] = len(pairs)
         vg.adjacency.setdefault(j, {})[i] = len(pairs)
 
-    # database + consistency groups
+    # the loop detector: database + consistency groups
     for vid in z["db_ids"]:
-        bow = vg.frames[int(vid)].bow
-        if bow is not None:
-            vg.db.add(int(vid), bow)
+        vg.loop.add(int(vid), vg.frames[int(vid)].bow)
     members = _uncsr(z["group_members"], z["group_offsets"])
-    vg._consistent_groups = [
+    vg.loop.groups = [
         (set(m.tolist()), int(c))
         for m, c in zip(members, z["group_counts"])
     ]

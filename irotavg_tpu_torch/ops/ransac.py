@@ -7,8 +7,9 @@ their bounds.
 correspondences ``p1``, ``p2`` (L, N, 2) f64:
 
 * the sample positions: JAX's threefry draws of the lane's key mapped
-  through the cumulative valid count, exactly as ``ops/draw.py`` draws
-  them (or positions given by the caller);
+  through the cumulative valid count, exactly as
+  ``ops/draw.py:draw_positions_plain`` draws them (or positions given by
+  the caller);
 * per 8-point sample the essential candidate: the 8 correspondences
   Hartley-normalised, the null direction of their 8x9 design, the
   Hartley transforms undone, the result scaled to unit Frobenius norm and
@@ -99,7 +100,7 @@ import numpy as np
 import torch
 
 from irotavg_tpu_torch.ops.draw import (
-    MAP_OPS, THREEFRY_OPS, _Keys, draw_positions_plain, lane_keys,
+    MAP_OPS, THREEFRY_OPS, draw_positions_plain, lane_keys,
 )
 from irotavg_tpu_torch.ops.segment import H100_ADDS_PER_S, \
     H100_HBM_BYTES_PER_S
@@ -134,6 +135,13 @@ VOTE_CHUNK = 32
 # must equal the .cu's kMaxLanes and kMaxN
 MAX_LANES = 64
 MAX_N = 57344
+
+
+class _Keys(ctypes.Structure):
+    """The hypotheses kernel's ``DrawKeys``: per lane the words ``k1, k2``
+    of the first shape's keys, then those of the second shape's."""
+    _fields_ = [("k", ctypes.c_uint32 * (MAX_LANES * 8))]
+
 
 # f64 operations (each + - * / sqrt, compare and abs one) behind the
 # bounds, besides the QR (:func:`_qr_ops`): a hypothesis's two Hartley

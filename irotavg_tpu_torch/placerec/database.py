@@ -6,11 +6,13 @@ postings lists per word id (`add`/`erase`, :32-62) and the cascade of
 
   1. collect views sharing words with the query, excluding views already
      connected to it (`findViewsSharingWords`, :65-92);
-  2. keep views with shared-word count > 0.8 * max;
+  2. keep views with shared-word count > SHARED_WORDS_FRAC (0.8) * max;
   3. BoW score filter >= min_score;
-  4. accumulate scores over each candidate's top-10 covisible views that
-     also pass the shared-word bar, track the best view of each group;
-  5. retain groups with accumulated score > 0.75 * best, deduplicated.
+  4. accumulate scores over each candidate's COVISIBILITY_TOP_N (10) best
+     covisible views that also pass the shared-word bar, track the best
+     view of each group;
+  5. retain groups with accumulated score > GROUP_SCORE_FRAC (0.75) *
+     best, deduplicated.
 
 Documented divergence (kept from the JAX package): the reference stores
 per-view scores in a ``std::map<View*, int>`` (ViewDatabase.cpp:123),
@@ -29,6 +31,12 @@ import collections
 import numpy as np
 
 from irotavg_tpu_torch.placerec.bow import bow_score as _default_l1_score
+
+# the cascade's constants, steps 2, 4 and 5 above (ViewDatabase.cpp:111-119,
+# :151-213)
+SHARED_WORDS_FRAC = 0.8
+COVISIBILITY_TOP_N = 10
+GROUP_SCORE_FRAC = 0.75
 
 
 def _to_arrays(bow: dict):
@@ -111,7 +119,7 @@ class ViewDatabase:
     def detect_loop_candidates(self, query_id: int, bow: dict,
                                connected: set[int], min_score: float,
                                covisibility_fn, score_fn) -> list[int]:
-        """The reference's 0.8 / min_score / 0.75 cascade.
+        """The reference's shared-word / min_score / group-score cascade.
 
         covisibility_fn(view_id, n) -> up to n best covisible view ids;
         score_fn(bow1, bow2) -> similarity.
@@ -122,7 +130,7 @@ class ViewDatabase:
             return []
 
         max_common = max(shared.values())
-        min_common = max_common * 0.8
+        min_common = max_common * SHARED_WORDS_FRAC
 
         passing = [vid for vid, c in shared.items() if c > min_common]
         batch = self._score_many(bow, passing, score_fn)
@@ -137,7 +145,7 @@ class ViewDatabase:
         for s, vid in score_and_view:
             acc = s
             best_score, best_view = s, vid
-            for co in covisibility_fn(vid, 10):
+            for co in covisibility_fn(vid, COVISIBILITY_TOP_N):
                 if shared.get(co, 0) > min_common:
                     co_s = scores.get(co, 0.0)
                     acc += co_s
@@ -146,7 +154,7 @@ class ViewDatabase:
             acc_pairs.append((acc, best_view))
             best_acc = max(best_acc, acc)
 
-        retain = 0.75 * best_acc
+        retain = GROUP_SCORE_FRAC * best_acc
         out, seen = [], set()
         for acc, vid in acc_pairs:
             if acc > retain and vid not in seen:

@@ -1,8 +1,9 @@
 """The loop-closure slice end to end: test_loop_e2e.py's 14-frame
 out-and-back sequence through the port's ViewGraph and the JAX ViewGraph
-(``COVISIBILITY_CONSISTENCY_TH = 1``), per keyframe: process_frame ->
-loop candidates -> consistency -> close_loop (+ a whole-graph solve) ->
-add_to_database -> rot_avg(10).
+(consistency threshold 1: the JAX class's ``COVISIBILITY_CONSISTENCY_TH``,
+the port's ``LoopClosureConfig.covisibility_consistency_th``), per
+keyframe: process_frame -> loop candidates -> consistency -> close_loop
+(+ a whole-graph solve) -> add_to_database -> rot_avg(10).
 
 Two vocabularies, one test file each (each file compiles the JAX
 programs once): here a k=8, L=3 one trained by the JAX package on the
@@ -38,6 +39,7 @@ from irotavg_tpu.frontend import Frame as JaxFrame
 from irotavg_tpu.frontend import ORBExtractor as JaxORB
 from irotavg_tpu.placerec import train_vocabulary
 from irotavg_tpu.placerec.vocabulary import Vocabulary as JaxVocabulary
+from irotavg_tpu_torch.config import LoopClosureConfig
 from irotavg_tpu_torch.engine.viewgraph import ViewGraph
 from irotavg_tpu_torch.frontend.camera import Camera
 from irotavg_tpu_torch.interop import (
@@ -52,6 +54,8 @@ from jax_programs import release_jax_programs  # noqa: F401
 # intra-op pool per worker oversubscribes them many times over
 torch.set_num_threads(1)
 
+# the consistency threshold of the short synthetic sequence
+CONSISTENCY_TH = 1
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
                        "product_vocab_k10_L5_v1.txt.gz")
 
@@ -84,7 +88,6 @@ def _vocabs(which, jframes, tmp_dir):
 
 def _run(vg, frames):
     """test_loop_e2e.py's loop, for either package's ViewGraph."""
-    vg.COVISIBILITY_CONSISTENCY_TH = 1      # short synthetic sequence
     loops, kept = [], []
     for i, f in enumerate(frames):
         if not vg.process_frame(f, win_size=4):
@@ -110,6 +113,7 @@ def run_both(which, tmp_dir):
     for f in jframes:
         f.compute_bow(jvoc)
     jvg = JaxViewGraph(jcam, min_matches=60)
+    jvg.COVISIBILITY_CONSISTENCY_TH = CONSISTENCY_TH
     with jax.enable_x64(False):              # as the JAX CLI runs
         jloops, jkept = _run(jvg, jframes)
     tframes = []
@@ -119,7 +123,9 @@ def run_both(which, tmp_dir):
         f.id = jf.id
         f.compute_bow(tvoc)
         tframes.append(f)
-    vg = ViewGraph(cam, min_matches=60, device="cpu")
+    vg = ViewGraph(cam, min_matches=60, device="cpu",
+                   loop_cfg=LoopClosureConfig(
+                       covisibility_consistency_th=CONSISTENCY_TH))
     calls = []
     orig = match.best2_plain
 

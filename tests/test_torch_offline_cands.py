@@ -49,6 +49,7 @@ import time
 import types
 
 import numpy as np
+import pytest
 import torch
 
 from irotavg_tpu_torch.config import LoopClosureConfig, PipelineConfig
@@ -180,6 +181,61 @@ def test_loop_candidates_equal_jax():
                                np.int64), n_matches[order], cfg)
     assert got == want
     assert res.stats["loop_candidate_pairs"] == len(want)
+
+
+def _revisits(n_places, laps, n_desc, seed):
+    """Descriptors of ``n_places * laps`` keyframes that revisit
+    ``n_places`` places lap after lap (each place's (n_desc, 8) int32
+    words with a few bits flipped a visit), all valid, and window edges
+    ``(i - d, i)`` for d = 1, 2, 3 with match counts falling with d (ties
+    included)."""
+    rng = np.random.default_rng(seed)
+    places = rng.integers(0, 2**32, (n_places, n_desc, 8), dtype=np.uint64)
+    K = n_places * laps
+    desc = places[np.arange(K) % n_places]
+    flips = rng.integers(0, 32, (K, n_desc, 8), dtype=np.uint64)
+    desc = desc ^ np.where(rng.random((K, n_desc, 8)) < 0.1, 1 << flips, 0)
+    desc = torch.from_numpy(desc.astype(np.uint32).view(np.int32))
+    edges = np.array([(i - d, i) for i in range(1, K) for d in (1, 2, 3)
+                      if i - d >= 0], np.int64)
+    n_matches = np.array([400 - 50 * (b - a) + (b % 2) for a, b in edges])
+    return desc, torch.ones(desc.shape[:2], dtype=torch.bool), edges, \
+        n_matches
+
+
+@pytest.mark.parametrize("consistency_th", [1, 7])
+def test_loop_candidates_equal_engine(consistency_th):
+    """Given the same keyframe BoW and the same adjacency, the engine's
+    loop methods, asked keyframe by keyframe in order (candidates,
+    consistency, then the database insert), give the (candidate, query)
+    pairs of the offline pipeline's ``_loop_candidates``."""
+    from irotavg_tpu_torch.engine.viewgraph import ViewGraph
+    from irotavg_tpu_torch.frontend.camera import Camera
+    from irotavg_tpu_torch.placerec.vocabulary import make_random_vocabulary
+
+    vocab = make_random_vocabulary(k=10, L=3, seed=1, device="cpu")
+    desc, valid, edges, n_matches = _revisits(10, 3, 200, seed=2)
+    kf = np.arange(len(desc))
+    cfg = LoopClosureConfig(covisibility_consistency_th=consistency_th)
+    want = _loop_candidates(vocab, desc, valid, kf, edges, n_matches,
+                            PipelineConfig(loop=cfg))
+
+    vg = ViewGraph(Camera(fx=500.0, fy=500.0, cx=320.0, cy=240.0,
+                          width=640, height=480), device="cpu",
+                   loop_cfg=cfg)
+    vg.frames = [types.SimpleNamespace(bow=vocab.transform(desc[k],
+                                                           valid[k])[0])
+                 for k in kf]
+    for (a, b), nm in zip(edges, n_matches):  # the whole graph, as offline
+        vg.adjacency.setdefault(int(a), {})[int(b)] = int(nm)
+        vg.adjacency.setdefault(int(b), {})[int(a)] = int(nm)
+    got = []
+    for k in kf:
+        cands = vg.detect_loop_candidates(int(k))
+        got += [(c, int(k)) for c in vg.check_loop_consistency(cands)]
+        vg.add_to_database(int(k))
+    assert got == want
+    assert len(want) >= 2, "no consistent loop candidates on the revisits"
 
 
 # -- the diagnosis (run as a script) ------------------------------------------

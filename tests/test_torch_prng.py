@@ -172,7 +172,8 @@ def test_draw_positions_plain_lanes():
     valid = np.stack([_valid(k, n, rng) for k in kinds])
     keys = prng.split(prng.key(77), len(kinds))
     shapes = ((512, 8), (192, 4))
-    idx, idx_h = draw.draw_positions(torch.from_numpy(valid), keys, shapes)
+    idx, idx_h = draw.draw_positions_plain(torch.from_numpy(valid), keys,
+                                           shapes)
     with jax.enable_x64(False):
         jkeys = jax.random.split(jax.random.key(77), len(kinds))
     for lane in range(len(kinds)):
@@ -180,31 +181,30 @@ def test_draw_positions_plain_lanes():
             ref = _jax_draws(valid[lane], jkeys[lane], 512, 192)
         assert torch.equal(idx[lane], ref[0].clamp(max=n - 1))
         assert torch.equal(idx_h[lane], ref[1].clamp(max=n - 1))
-    sub = draw.draw_positions(torch.from_numpy(valid[2:5]), keys[2:5],
-                              shapes)
+    sub = draw.draw_positions_plain(torch.from_numpy(valid[2:5]), keys[2:5],
+                                    shapes)
     assert torch.equal(sub[0], idx[2:5]) and torch.equal(sub[1], idx_h[2:5])
 
 
 def test_draw_dispatch_and_bound():
+    """The plain draw refuses malformed input: ``valid`` not (lanes, N)
+    bool, a key count other than the lanes', no position to draw from,
+    other than two shapes."""
     valid = torch.ones((2, 10), dtype=torch.bool)
     keys = prng.split(prng.key(1))
     shapes = ((3, 8), (2, 4))
-    with pytest.raises(ValueError, match="no kernel"):
-        draw.draw_launcher(valid, keys, shapes)
+    with pytest.raises(ValueError, match="lanes, N"):
+        draw.draw_positions_plain(valid[0], keys[:1], shapes)
+    with pytest.raises(TypeError, match="bool"):
+        draw.draw_positions_plain(valid.to(torch.uint8), keys, shapes)
     with pytest.raises(ValueError, match="keys"):
-        draw.draw_positions(valid, keys[:1], shapes)
-    with pytest.raises(TypeError):
-        draw.draw_positions(valid.to(torch.uint8), keys, shapes)
-    draw.reset_launch_counts()
-    draw.draw_positions(valid, keys, shapes)
-    assert draw.draw_positions.launches == 0       # the CPU launches nothing
-    ops, nbytes = draw.draw_work(2, 2000, 4864)
-    assert nbytes == 2 * (2000 + 8 * 4864)
-    assert ops == 2 * (2000 + 4864 * (2 * draw.THREEFRY_OPS + draw.MAP_OPS
-                                      + 11))
-    ms, by = draw.bound_ms(2, 2000, 4864)
-    assert by == "operations"
-    assert ms == pytest.approx(ops / draw.H100_INT32_OPS_PER_S * 1e3)
+        draw.draw_positions_plain(valid, keys[:1], shapes)
+    with pytest.raises(ValueError, match="no positions"):
+        draw.draw_positions_plain(valid[:, :0], keys, shapes)
+    with pytest.raises(ValueError, match="two shapes"):
+        draw.draw_positions_plain(valid, keys, shapes[:1])
+    idx, idx_h = draw.draw_positions_plain(valid, keys, shapes)
+    assert idx.shape == (2, 3, 8) and idx_h.shape == (2, 2, 4)
 
 
 def test_port_draws_from_no_torch_generator():
